@@ -25,7 +25,18 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      against an fp32 copy with the same weights;
   5. a small input against a reference: the 256 px tiny config in fp32 on the
      card (K1, K2 and K3 all launched) against the port on the CPU, where
-     every kernel wrapper computes its plain version.
+     every kernel wrapper computes its plain version;
+  6. the training kernels against their plain versions at the shapes of the
+     UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
+     (32,1024,80)), bf16 and fp32: the forward with residuals (K2's o and
+     lse), K4 (dk, dv) and K5 (dq), each timed beside its bound, its plain
+     version and scaled_dot_product_attention;
+  7. the training path: make_train_step(SwapConfig(), ...), the eps-MSE
+     step at batch 4 and 512 px, 3 steps on seeded random weights; checks the
+     loss, that every trainable parameter moved and every frozen one did not,
+     the kernels' launches per step against the plan, one step's loss and
+     UNet gradient against the same step with attn_impl="einsum", and a tiny
+     fp32 step on the card against the CPU port.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
 ...}. Any failure exits non-zero before that line; without a CUDA device it
@@ -37,6 +48,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import subprocess
 import time
 
@@ -46,6 +58,8 @@ import torch.nn.functional as F
 from reface_tpu_torch.nn.conditioner import REFaceConditioner
 from reface_tpu_torch.nn.unet import UNetModel
 from reface_tpu_torch.nn.vae import AutoencoderKL
+from reface_tpu_torch.nn.layers import CrossAttention
+from reface_tpu_torch.ops import attention as PA
 from reface_tpu_torch.ops import kernels
 from reface_tpu_torch.ops.attention import wide_attention
 from reface_tpu_torch.ops.attention_smalld import einsum_attention, self_attention_smalld
@@ -57,6 +71,13 @@ from reface_tpu_torch.pipelines.swap import (
     init_params,
     tiny_swap_config,
     un_norm,
+)
+from reface_tpu_torch.pipelines.train import (
+    TrainConfig,
+    make_draws,
+    make_train_step,
+    named_params,
+    trainable_labels,
 )
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): the bounds below use these.
@@ -92,7 +113,37 @@ REL_TOL_BF16 = 1e-2
 TOWER_TOL = {"UNet": 3e-2, "UNet fused": 3e-2, "VAE encode": 3e-2,
              "VAE decode": 3e-2, "conditioner": 2e-3}
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
-KERNELS = (self_attention_smalld, wide_attention, group_norm_silu)
+KERNELS = (self_attention_smalld, wide_attention, group_norm_silu,
+           PA.flash_attention_fwd, PA.flash_bwd_dkv, PA.flash_bwd_dq)
+
+# Training (phases 6-7). The UNet's self-attention at batch 4: 8 heads of
+# d=40 over 4096 tokens and of d=80 over 1024, five of each per step.
+TRAIN_BATCH = 4
+TRAIN_STEPS = 3
+TRAIN_SHAPES = ((32, 4096, 4096, 40), (32, 1024, 1024, 80))
+# Launches per training step, in KERNELS order: under remat the forward of
+# each of the 10 flash self-attentions runs twice; K4 and K5 once each in
+# the backward; K2 once per VAE encode (target and masked target); no K1, no
+# K3 (fused_groupnorm is off in SwapConfig()).
+TRAIN_PLAN = (0, 2, 0, 20, 10, 10)
+# Phase 6 tolerances, kernel vs plain version on the same inputs. fp32: full
+# fp32 on both sides, only summation order differs (seen <= 6e-7). bf16: the
+# outputs are bf16 and P and dS are rounded to bf16 at the same places on
+# both sides; the forward's o as K2 (seen 9.8e-4 to 2e-3), the gradients
+# (|g| < 2) within one bf16 ulp at 2, 2^-7 (seen <= 2e-3), and every bf16
+# output also within REL_TOL_BF16 relative L2 (seen <= 2.4e-3). lse is fp32
+# on both sides (seen 1.9e-6 at |lse| ~ 9.5).
+TOL.update({"K2r": {"fp32": 2e-5, "bf16": 5e-3},
+            "K4": {"fp32": 2e-5, "bf16": 2**-7},
+            "K5": {"fp32": 2e-5, "bf16": 2**-7}})
+LSE_TOL = 1e-5
+# Phase 7: one bf16 step with FlashAttention against the same step with the
+# plain attention product on the card (same weights, batch and draws). Both
+# round to bf16, at different places inside the attention (P relative to a
+# running max against normalised weights); the UNet's bf16 backward carries
+# that through every layer. Seen on the H100: loss 2.3e-5 relative, UNet
+# gradient 1.65e-3 relative L2; the limits are about 10x and 6x that.
+TRAIN_TOL = {"loss": 2e-4, "grad": 1e-2}
 
 
 def fail(msg: str):
@@ -388,14 +439,15 @@ def serve(swapper, cfg: SwapConfig, k1_per_forward: int, k2_per_swap: int):
     return main_launches, lat, peak
 
 
-def profile_forward(fn, top: int = 8):
+def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False):
     """torch.profiler over one call: the device kernels' time by kind and
     the longest kernels. The profiler slows the host, so the share of the
-    call's time the device was busy is taken against an unprofiled run."""
+    call's time the device was busy is taken against an unprofiled run.
+    grad=True runs fn with autograd on (a training step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode(not grad):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -413,13 +465,15 @@ def profile_forward(fn, top: int = 8):
     for e in rows:
         name = e.key
         kind = ("K1/K2 attn_fwd_kernel" if "attn_fwd_kernel" in name else
+                "K4 flash_bwd_dkv" if "flash_bwd_dkv" in name else
+                "K5 flash_bwd_dq" if "flash_bwd_dq" in name else
                 "K3 gn_" if "gn_partial" in name or "gn_apply" in name else
                 "cuDNN NCHW<->NHWC" if "nchwToNhwc" in name or "nhwcToNchw" in name else
                 "conv/gemm" if any(w in name for w in ("conv", "gemm", "sm90", "xmma", "cutlass", "dgrad", "implicit")) else
                 "other")
         kinds[kind] += dev(e)
     busy = sum(kinds.values())
-    print(f"  profile of that forward: device kernels {busy:.2f} ms against "
+    print(f"  profile of that {what}: device kernels {busy:.2f} ms against "
           f"{wall:.2f} ms wall unprofiled ({100 * busy / wall:.1f}% busy), "
           f"{sum(e.count for e in rows)} kernel launches; by kind: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.most_common()), flush=True)
@@ -515,10 +569,291 @@ def tiny_reference():
     print(f"  tiny 256 px swap, card vs CPU: max abs err {err:.3e} (tol 1e-3), "
           f"{inside:.2f} of pixels off the clamp, launches K1 {launched[0]} "
           f"K2 {launched[1]} K3 {launched[2]}", flush=True)
-    if min(launched) == 0:
+    if min(launched[:3]) == 0:
         fail("the tiny reference run did not reach every kernel")
     if not err <= 1e-3:
         fail("the card's tiny swap disagrees with the CPU port")
+
+
+# ------------------------------------------------------------------ phase 6
+
+def check_train_kernels(gen):
+    """The residual forward (o, lse), K4 (dk, dv) and K5 (dq) against their
+    plain versions at TRAIN_SHAPES, bf16 and fp32 (the backward kernels and
+    their plain versions get the same plain o and lse), then bf16 times.
+    Returns {key: {shape: stats}} for the JSON rows.
+
+    At each bf16 shape it also reads two faults the limits must catch: the
+    plain dV with its last 64-key tile dropped, and the plain dQ without
+    the last 64 keys' contribution."""
+    worst = {k: {"fp32": 0.0, "bf16": 0.0, "rel": 0.0} for k in ("K2r", "K4", "K5")}
+    worst_lse = 0.0
+
+    def hold(key, kind, out, ref, dt, label):
+        err, rel, ok = within(key, kind, out, ref, dt)
+        print(f"    {label} {kind}: max_abs_err {err:.3e} (tol {TOL[key][kind]:.0e}), "
+              f"rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{label} disagrees with its plain version ({kind})")
+        worst[key][kind] = max(worst[key][kind], err)
+        if kind == "bf16":
+            worst[key]["rel"] = max(worst[key]["rel"], rel)
+
+    for bh, n, m, d in TRAIN_SHAPES:
+        scale = d**-0.5
+        for kind, dt in DTYPES.items():
+            print(f"  (BH,N,M,D)=({bh},{n},{m},{d})", flush=True)
+            q, k, v, do = (torch.randn(bh, x, d, generator=gen, device="cuda").to(dt)
+                           for x in (n, m, m, n))
+            o, lse = PA.flash_attention_fwd(q, k, v, scale)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = PA.flash_attention_fwd_plain(q, k, v, scale)
+            hold("K2r", kind, o, o_ref, dt, "flash_attention_fwd o")
+            lse_err = (lse - lse_ref).abs().max().item()
+            print(f"    flash_attention_fwd lse {kind}: max_abs_err {lse_err:.3e} "
+                  f"(tol {LSE_TOL:.0e})", flush=True)
+            if lse.dtype != torch.float32 or not lse_err <= LSE_TOL:
+                fail(f"flash_attention_fwd's lse disagrees with its plain version ({kind})")
+            worst_lse = max(worst_lse, lse_err)
+            del o, lse
+            di = PA.row_dot(o_ref, do)
+            dk, dv = PA.flash_bwd_dkv(q, k, v, lse_ref, do, di, scale)
+            dq = PA.flash_bwd_dq(q, k, v, lse_ref, do, di, scale)
+            torch.cuda.synchronize()
+            dk_ref, dv_ref = PA.flash_bwd_dkv_plain(q, k, v, lse_ref, do, di, scale)
+            hold("K4", kind, dk, dk_ref, dt, "flash_bwd_dkv dk")
+            hold("K4", kind, dv, dv_ref, dt, "flash_bwd_dkv dv")
+            del dk, dv, dk_ref
+            dq_ref = PA.flash_bwd_dq_plain(q, k, v, lse_ref, do, di, scale)
+            hold("K5", kind, dq, dq_ref, dt, "flash_bwd_dq dq")
+            if kind == "bf16":
+                bad_dv = dv_ref.clone()
+                bad_dv[:, -64:] = 0
+                bad_dq = PA.flash_bwd_dq_plain(q, k[:, :-64], v[:, :-64], lse_ref, do, di, scale)
+                for key, bad, ref, what in (("K4", bad_dv, dv_ref, "dV with its last 64-key tile dropped"),
+                                            ("K5", bad_dq, dq_ref, "dQ without the last 64 keys")):
+                    f_err, f_rel, passes = within(key, kind, bad, ref, dt)
+                    print(f"    the plain {what}: max_abs_err {f_err:.3e}, rel L2 "
+                          f"{f_rel:.3e}: {'NOT CAUGHT' if passes else 'caught'}", flush=True)
+                    if passes:
+                        fail(f"{key}'s bf16 tolerance would not catch the {what}")
+            del q, k, v, do, o_ref, lse_ref, di, dq, dq_ref, dv_ref
+            torch.cuda.empty_cache()
+
+    stats = {"K2r": {}, "K4": {}, "K5": {}}
+    for bh, n, m, d in TRAIN_SHAPES:
+        scale = d**-0.5
+        q, k, v, do = (torch.randn(bh, x, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+                       for x in (n, m, m, n))
+        o, lse = PA.flash_attention_fwd(q, k, v, scale)
+        di = PA.row_dot(o, do)
+        qg, kg, vg = (t[None].detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            torch.autograd.grad(out, (qg, kg, vg), do[None])
+
+        with torch.no_grad():
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale))
+        sdpa_fb = time_ms(sdpa_fwd_bwd)
+        lse_b = 4 * bh * n
+        io = lambda *sizes: 2 * sum(bh * x * d for x in sizes)  # bf16 operands
+        rows = {
+            "K2r": (lambda: PA.flash_attention_fwd(q, k, v, scale),
+                    lambda: PA.flash_attention_fwd_plain(q, k, v, scale),
+                    4.0 * bh * n * m * d, io(n, m, m, n) + lse_b, sdpa_fwd),
+            "K4": (lambda: PA.flash_bwd_dkv(q, k, v, lse, do, di, scale),
+                   lambda: PA.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale),
+                   8.0 * bh * n * m * d, io(n, m, m, n, m, m) + 2 * lse_b, sdpa_fb),
+            "K5": (lambda: PA.flash_bwd_dq(q, k, v, lse, do, di, scale),
+                   lambda: PA.flash_bwd_dq_plain(q, k, v, lse, do, di, scale),
+                   6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b, sdpa_fb),
+        }
+        for key, (kern, plain, ops, nbytes, lib) in rows.items():
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            b, by = bound_ms(nbytes, ops, "bf16")
+            stats[key][(bh, n, m, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                             bound_ms=b, ops=ops, bytes=nbytes)
+            print(f"  {key} bf16 (BH,N,M,D)=({bh},{n},{m},{d}): kernel {ms:.4f} ms, bound "
+                  f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
+                  f"{'forward' if key == 'K2r' else 'forward+backward'} {lib:.4f} ms, "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        del q, k, v, do, o, lse, di, qg, kg, vg
+        torch.cuda.empty_cache()
+    print(f"  worst max_abs_err: " + ", ".join(
+        f"{k} fp32 {w['fp32']:.3e} bf16 {w['bf16']:.3e} (rel L2 {w['rel']:.3e})"
+        for k, w in worst.items()) + f"; lse {worst_lse:.3e}", flush=True)
+    return stats, worst
+
+
+# ------------------------------------------------------------------ phase 7
+
+def set_unet_attn(unet, impl: str):
+    for m in unet.modules():
+        if isinstance(m, CrossAttention):
+            m.attn_impl = impl
+
+
+def grads_of(loss_fn, modules, batch, draws):
+    """(loss, {name: grad}) of one eps-MSE loss over the UNet's parameters."""
+    for p in modules.unet.parameters():
+        p.grad = None
+    loss, _ = loss_fn(modules, batch, draws)
+    loss.backward()
+    return loss.item(), {k: p.grad.float().clone() for k, p in modules.unet.named_parameters()
+                         if p.grad is not None}
+
+
+def rel_l2(a: dict, b: dict) -> float:
+    num = sum((a[k] - b[k]).double().pow(2).sum() for k in b)
+    return float((num / sum(v.double().pow(2).sum() for v in b.values())).sqrt())
+
+
+def train_path():
+    """The eps-MSE step at full width (phase 7). Returns (launches of the
+    main path in KERNELS order, kernel shapes per step, step times, peak)."""
+    cfg = SwapConfig()
+    # warmup_steps=1: the optimizer's learning rate reaches 1e-5 at the
+    # second step, so that every trainable parameter moves by far more than
+    # its fp32 resolution (the default 10k-step warmup starts at 1e-11)
+    tcfg = TrainConfig(warmup_steps=1)
+    train_step, loss_fn, init_state = make_train_step(cfg, tcfg, device="cuda")
+    t0 = time.perf_counter()
+    state = init_state(seed=0)
+    for i, m in enumerate(state.modules.towers().values()):
+        init_params(m, seed=i, dezero=True)  # gradients reach every layer
+    named = named_params(state.modules)
+    labels = trainable_labels(named)
+    n_unet = sum(p.numel() for p in state.modules.unet.parameters())
+    n_train = sum(p.numel() for k, p in named.items() if labels[k] == "train")
+    if n_unet != UNET_PARAMS:
+        fail(f"UNet has {n_unet} parameters, expected {UNET_PARAMS}")
+    torch.cuda.synchronize()
+    print(f"  built the training towers in {time.perf_counter() - t0:.1f} s: {n_train:,} "
+          f"trainable parameters (fp32), UNet remat {state.modules.unet.config.remat}, "
+          f"attn_impl {state.modules.unet.config.attn_impl!r}", flush=True)
+    hw = cfg.latent_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [make_request(200 + s, cfg.image_size, "cuda", batch=TRAIN_BATCH)
+               for s in range(TRAIN_STEPS)]
+    draws = [make_draws(TRAIN_BATCH, hw, tcfg, "cuda", gen) for _ in range(TRAIN_STEPS)]
+    draws[0]["drop"][0] = True  # the null token gets a gradient
+    snapshot = {k: p.detach().clone() for k, p in named.items()}
+    train_kernels = KERNELS[3:]
+    shapes = {kern.__name__: collections.Counter() for kern in train_kernels}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the training path's run starts here
+    times, losses = [], []
+    for s in range(TRAIN_STEPS):
+        before = counts()
+        if s == 0:
+            for kern in train_kernels:
+                kern.shapes = shapes[kern.__name__]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, metrics = train_step(state, batches[s], draws[s])
+        b.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for kern in train_kernels:
+            kern.shapes = None
+        losses.append(metrics["loss"].item())
+        times.append(wall)
+        d = tuple(x - y for x, y in zip(counts(), before))
+        print(f"  step {s}: loss {losses[-1]:.5f}, {wall:.3f} s (host enqueue {host:.1f} ms, "
+              f"device {a.elapsed_time(b):.1f} ms), launches K1 +{d[0]} K2 +{d[1]} K3 +{d[2]} "
+              f"K2-residual +{d[3]} K4 +{d[4]} K5 +{d[5]}", flush=True)
+        if d != TRAIN_PLAN:
+            fail(f"step {s}: launches {d}, planned {TRAIN_PLAN} (K1, K2, K3, K2 with "
+                 "residuals, K4, K5)")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)):
+        fail(f"a loss is not finite: {losses}")
+    print("  kernel shapes in step 0 as the wrappers recorded them: "
+          + "; ".join(f"{k} {dict(c)}" for k, c in shapes.items()), flush=True)
+    for kern, per_step in zip(train_kernels, TRAIN_PLAN[3:]):
+        plan = {shape: per_step // len(TRAIN_SHAPES) for shape in TRAIN_SHAPES}
+        if dict(shapes[kern.__name__]) != plan:
+            fail(f"{kern.__name__} ran at {dict(shapes[kern.__name__])}, planned {plan}")
+    moved = [k for k, p in named.items() if not torch.equal(p, snapshot[k])]
+    stuck = [k for k in moved if labels[k] == "freeze"] + [
+        k for k in named if labels[k] == "train" and k not in moved]
+    print(f"  after {TRAIN_STEPS} steps: {sum(labels[k] == 'train' for k in moved)} of "
+          f"{sum(v == 'train' for v in labels.values())} trainable tensors moved, "
+          f"{sum(labels[k] == 'freeze' for k in moved)} of "
+          f"{sum(v == 'freeze' for v in labels.values())} frozen ones did", flush=True)
+    if stuck:
+        fail(f"trainable tensors that did not move or frozen ones that did: {stuck[:8]}")
+    del snapshot
+    steady = times[1:]
+    print(f"  step time first {times[0]:.3f} s (warm-up included), steady "
+          f"{sum(steady) / len(steady):.3f} s; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    profile_forward(lambda: train_step(state, batches[0], draws[0]), what="training step",
+                    grad=True)
+
+    # the same step with the plain attention product (autograd) on the card
+    loss_f, g_f = grads_of(loss_fn, state.modules, batches[0], draws[0])
+    set_unet_attn(state.modules.unet, "einsum")
+    before = counts()
+    loss_e, g_e = grads_of(loss_fn, state.modules, batches[0], draws[0])
+    flash_runs = sum(counts()[3:]) - sum(before[3:])
+    set_unet_attn(state.modules.unet, "flash")
+    rel_loss, rel_grad = abs(loss_f - loss_e) / abs(loss_e), rel_l2(g_f, g_e)
+    print(f"  flash vs einsum attention, one step (bf16): loss {loss_f:.6f} vs {loss_e:.6f} "
+          f"(rel {rel_loss:.3e}, tol {TRAIN_TOL['loss']:.0e}), UNet gradient rel L2 "
+          f"{rel_grad:.3e} (tol {TRAIN_TOL['grad']:.0e}); flash launches in the einsum "
+          f"run {flash_runs}", flush=True)
+    if flash_runs or not (rel_loss <= TRAIN_TOL["loss"] and rel_grad <= TRAIN_TOL["grad"]):
+        fail("the flash step disagrees with the einsum step")
+    del state, g_f, g_e
+    torch.cuda.empty_cache()
+    return launches, shapes, times, peak
+
+
+def tiny_train_reference():
+    """tiny_swap_config at 256 px, fp32: the eps-MSE loss and every trainable
+    gradient on the card (the UNet's self-attention at 1024 tokens of d=8
+    runs the flash kernels) against the CPU port (plain versions), same
+    weights, batch and draws."""
+    cfg = tiny_swap_config(image_size=256)
+    tcfg = TrainConfig()
+    _, card_loss, card_init = make_train_step(cfg, tcfg, device="cuda")
+    _, cpu_loss, cpu_init = make_train_step(cfg, tcfg, device="cpu")
+    card = card_init(seed=30)
+    for i, m in enumerate(card.modules.towers().values()):
+        init_params(m, seed=30 + i, dezero=True)
+    cpu = cpu_init({name: {k: v.cpu() for k, v in m.state_dict().items()}
+                    for name, m in card.modules.towers().items()})
+    batch = make_request(9, 256, "cpu")
+    draws = make_draws(BATCH, 32, tcfg, "cpu", torch.Generator().manual_seed(3))
+    draws["drop"][0] = True
+    reset_counts()
+    loss_c, _ = card_loss(card.modules, {k: v.cuda() for k, v in batch.items()},
+                          {k: v.cuda() for k, v in draws.items()})
+    loss_c.backward()
+    torch.cuda.synchronize()
+    launched = counts()
+    loss_p, _ = cpu_loss(cpu.modules, batch, draws)
+    loss_p.backward()
+    grads = lambda st: {k: p.grad.cpu() for k, p in named_params(st.modules).items()
+                        if p.grad is not None}
+    gc, gp = grads(card), grads(cpu)
+    total = sum(float(g.double().pow(2).sum()) for g in gp.values()) ** 0.5
+    worst = max(float((gc[k] - g).norm()) / max(float(g.norm()), 1e-3 * total)
+                for k, g in gp.items())
+    rel_loss = abs(loss_c.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"  tiny 256 px step, card vs CPU (fp32): loss rel {rel_loss:.3e}, worst gradient "
+          f"rel L2 {worst:.3e} over {len(gp)} tensors (tol 1e-4); launches K2-residual "
+          f"{launched[3]} K4 {launched[4]} K5 {launched[5]}", flush=True)
+    if gc.keys() != gp.keys() or min(launched[3:]) == 0:
+        fail("the tiny training step did not reach the flash kernels or lost gradients")
+    if not (rel_loss <= 1e-5 and worst <= 1e-4):
+        fail("the card's tiny training step disagrees with the CPU port")
 
 
 # ------------------------------------------------------------------ main
@@ -545,8 +880,11 @@ def main():
         kernels.library(name)
     regs = {n: sorted({int(w.split()[1]) for l in r.splitlines() if "Used" in l
                        for w in [l[l.index("Used"):]]}) for n, r in reports.items()}
+    spills = {n: [int(l.split("bytes spill stores")[0].split(",")[-1])
+                  for l in r.splitlines() if "bytes spill stores" in l] for n, r in reports.items()}
     print(f"  built {len(reports)} kernel libraries in {time.perf_counter() - t0:.1f} s "
-          f"(registers per thread {regs})", flush=True)
+          f"(registers per thread {regs}; spill-store bytes of the instances that spill "
+          f"{ {n: [b for b in v if b] for n, v in spills.items()} })", flush=True)
 
     cfg = SwapConfig()
     swapper = build_swapper(cfg)
@@ -581,6 +919,15 @@ def main():
     print("phase 5: a small input against the CPU port", flush=True)
     tiny_reference()
 
+    print("phase 6: the training kernels against their plain versions on the card",
+          flush=True)
+    train_stats, train_worst = check_train_kernels(gen)
+
+    print(f"phase 7: the eps-MSE training step, SwapConfig() at {cfg.image_size} px, "
+          f"batch {TRAIN_BATCH}, {TRAIN_STEPS} steps", flush=True)
+    train_launches, train_shapes, step_times, train_peak = train_path()
+    tiny_train_reference()
+
     meta = {
         "K1": ("self_attention_smalld", "reface_tpu_torch/csrc/attention_smalld.cu",
                "reface_tpu/ops/attention_smalld.py:118", main_launches[0],
@@ -605,10 +952,40 @@ def main():
                      "tol": e["tol"], "max_abs_err_fp32": e["max_abs_err_fp32"],
                      "rel_l2_err": e["rel_l2_err"], "work": work})
     rows[0]["also_replaces"] = "reface_tpu/ops/attention_smalld.py:141"
+    lib_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    train_meta = {
+        "K2r": ("flash_attention_fwd", "reface_tpu_torch/csrc/attention_wide.cu",
+                f"{lib_src}:758", 3, "scaled_dot_product_attention forward"),
+        "K4": ("flash_bwd_dkv", "reface_tpu_torch/csrc/attention_flash_bwd.cu",
+               f"{lib_src}:1121", 4, "scaled_dot_product_attention forward+backward"),
+        "K5": ("flash_bwd_dq", "reface_tpu_torch/csrc/attention_flash_bwd.cu",
+               f"{lib_src}:1456", 5, "scaled_dot_product_attention forward+backward"),
+    }
+    for key, (name, src, repl, idx, lib_what) in train_meta.items():
+        per_step = train_shapes[name]
+        total = collections.Counter()
+        for shape, count in per_step.items():
+            for k2, val in train_stats[key][shape].items():
+                total[k2] += count * val
+        _, by = bound_ms(total["bytes"], total["ops"], "bf16")
+        w = train_worst[key]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": f"{repl} (reached from reface_tpu/ops/attention.py:71)",
+                     "launches": train_launches[idx], "max_abs_err": w["bf16"],
+                     "ms": total["ms"], "plain_ms": total["plain_ms"],
+                     "bound_ms": total["bound_ms"], "bound_by": by,
+                     "library_ms": total["library_ms"], "library": lib_what,
+                     "tol": TOL[key]["bf16"], "max_abs_err_fp32": w["fp32"],
+                     "rel_l2_err": w["rel"],
+                     "work": f"one training step at batch {TRAIN_BATCH}: "
+                             + ", ".join(f"{c}x(BH,N,M,D)={s}" for s, c in per_step.items())})
     steady = lat[1:] or lat
+    tsteady = step_times[1:]
     print(f"summary: {smi}; swap latency first {lat[0]:.3f} s, steady "
           f"{sum(steady) / len(steady):.3f} s, {BATCH * len(steady) / sum(steady):.3f} "
-          f"swaps/s, peak {peak / 2**30:.2f} GiB; wall {time.perf_counter() - t_start:.1f} s",
+          f"swaps/s, peak {peak / 2**30:.2f} GiB; train step (batch {TRAIN_BATCH}) first "
+          f"{step_times[0]:.3f} s, steady {sum(tsteady) / len(tsteady):.3f} s, peak "
+          f"{train_peak / 2**30:.2f} GiB; wall {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,9 +2,11 @@ from reface_tpu_torch.ckpt.from_jax import (
     arcface_from_jax,
     clip_conditioner_from_jax,
     conditioner_from_jax,
+    swap_from_jax,
     unet_from_jax,
     vae_from_jax,
 )
 
 __all__ = ["arcface_from_jax", "clip_conditioner_from_jax",
-           "conditioner_from_jax", "unet_from_jax", "vae_from_jax"]
+           "conditioner_from_jax", "swap_from_jax", "unet_from_jax",
+           "vae_from_jax"]

@@ -7,6 +7,10 @@ reference torch checkpoint's names. The naming rules are copied from
 convert.py (`_unet_rule`, `_vae_rule`, `_clip_rule`, `_arcface_rule`), not
 imported, so this package never loads JAX.
 
+A gradient tree of the same params (jax.grad of a loss over them) has the
+same paths and layouts and converts the same way, so the tests compare the
+two packages' gradients by name.
+
 Layouts: Dense kernel (in, out) -> weight (out, in); Conv kernel
 (kh, kw, in, out) -> weight (out, in, kh, kw); norm scale/bias ->
 weight/bias; ArcFace's NHWC-flatten output_fc rows -> NCHW-flatten order.
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["unet_from_jax", "vae_from_jax", "clip_conditioner_from_jax",
-           "arcface_from_jax", "conditioner_from_jax"]
+           "arcface_from_jax", "conditioner_from_jax", "swap_from_jax"]
 
 _ID = lambda a: a
 _NORM = {"scale": "weight", "bias": "bias"}
@@ -305,3 +309,11 @@ def conditioner_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         sd[f"{torch_name}.bias"] = _tensor(tree[flax_name]["bias"])
     sd["learnable_vector"] = _tensor(tree["learnable_vector"])
     return sd
+
+
+def swap_from_jax(tree: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's {"unet", "vae", "conditioner"} params (or gradients)
+    -> the port's {"unet", "vae", "conditioner"} state dicts, the `params`
+    of FaceSwapper and of the trainer's init_state."""
+    return {"unet": unet_from_jax(tree["unet"]), "vae": vae_from_jax(tree["vae"]),
+            "conditioner": conditioner_from_jax(tree["conditioner"])}

@@ -17,6 +17,12 @@
 // first-256-key shift; softmax is shift-invariant, so both are exact up to
 // where the bf16 rounding of p happens. fast=1 drops the shift entirely.
 //
+// kLse = true is the training forward (the library flash_attention with
+// save_residuals=True): the row sum takes the fp32 probabilities, which are
+// rounded to the input dtype only for the PV product, and each query row's
+// log-sum-exp (natural log, fp32) is written to `lse` for the backward
+// kernels (attention_flash_bwd.cu).
+//
 // bf16 runs its products on the tensor cores with mma.sync m16n8k16
 // (fp32 accumulate). fp32 computes the same fragments with scalar FMAs, in
 // full fp32, so the card can hold the kernel to the plain version tightly.
@@ -33,6 +39,8 @@ constexpr int kBN = 64;     // keys per tile
 constexpr int kKC = 128;    // widest K chunk held in shared memory
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T> struct Pad;  // row padding (elements) against bank conflicts
 template <> struct Pad<__nv_bfloat16> { static constexpr int v = 8; };
@@ -81,11 +89,12 @@ inline size_t attn_smem_bytes(int d, int dv) {
 }
 
 // NT = number of 8-wide output tiles the accumulator can hold (>= dv/8).
-template <typename T, int NT>
+template <typename T, int NT, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int n, int m,
-                int d, int dv, float scale_log2, int fast) {
+                const T* __restrict__ v, T* __restrict__ o,
+                float* __restrict__ lse, int n, int m, int d, int dv,
+                float scale_log2, int fast) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = Pad<T>::v;
   const int dp = round_up(d, 16);
@@ -194,7 +203,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          float pr = to_f(from_f<T>(exp2f(s[j][e] - m_new)));  // rounded as PV sees it
+          float pr = exp2f(s[j][e] - m_new);
+          if constexpr (!kLse) pr = to_f(from_f<T>(pr));  // rounded as PV sees it
           s[j][e] = pr;
           sum += pr;
         }
@@ -256,6 +266,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + wr + g + 8 * r;
     if (row >= n) continue;
     const float inv = 1.f / row_sum[r];
+    if constexpr (kLse) {
+      if (blockIdx.y == 0 && t == 0)
+        lse[bh * n + row] = (row_max[r] + log2f(row_sum[r])) * kLn2;
+    }
     T* orow = ob + (size_t)row * d + s0;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -267,35 +281,36 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool kLse>
 inline int launch_attn(const void* q, const void* k, const void* v, void* o,
-                       int bh, int n, int m, int d, int dv, float scale_log2,
-                       int fast, cudaStream_t stream) {
+                       float* lse, int bh, int n, int m, int d, int dv,
+                       float scale_log2, int fast, cudaStream_t stream) {
   const size_t smem = attn_smem_bytes<T>(d, dv);
-  auto kern = attn_fwd_kernel<T, NT>;
+  auto kern = attn_fwd_kernel<T, NT, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + kBM - 1) / kBM, d / dv, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n, m, d, dv, scale_log2,
-      fast);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, n, m, d, dv,
+      scale_log2, fast);
   return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16. dv must divide d and be a multiple of 8.
-template <int NT>
+// kLse: the training forward, which also writes lse (see the top note).
+template <int NT, bool kLse = false>
 inline int launch_attn_dtype(int dtype, const void* q, const void* k,
                              const void* v, void* o, int bh, int n, int m,
                              int d, int dv, float scale_log2, int fast,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, float* lse = nullptr) {
   if (dtype == 1)
-    return launch_attn<__nv_bfloat16, NT>(q, k, v, o, bh, n, m, d, dv,
-                                          scale_log2, fast, stream);
+    return launch_attn<__nv_bfloat16, NT, kLse>(q, k, v, o, lse, bh, n, m, d,
+                                                dv, scale_log2, fast, stream);
   if (dtype == 0)
-    return launch_attn<float, NT>(q, k, v, o, bh, n, m, d, dv, scale_log2,
-                                  fast, stream);
+    return launch_attn<float, NT, kLse>(q, k, v, o, lse, bh, n, m, d, dv,
+                                        scale_log2, fast, stream);
   return (int)cudaErrorInvalidValue;
 }
 

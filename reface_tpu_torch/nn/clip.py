@@ -139,29 +139,31 @@ class CLIPVisionTower(nn.Module):
 
 
 class _MapperAttention(nn.Module):
-    def __init__(self, width, dtype, device):
+    def __init__(self, width, kw):
         super().__init__()
-        self.c_qkv = Linear(width, width * 3, dtype=dtype, device=device)
-        self.c_proj = Linear(width, width, dtype=dtype, device=device)
+        self.c_qkv = Linear(width, width * 3, **kw)
+        self.c_proj = Linear(width, width, **kw)
 
 
 class _MapperMLP(nn.Module):
-    def __init__(self, width, dtype, device):
+    def __init__(self, width, kw):
         super().__init__()
-        self.c_fc = Linear(width, width * 4, dtype=dtype, device=device)
-        self.c_proj = Linear(width * 4, width, dtype=dtype, device=device)
+        self.c_fc = Linear(width, width * 4, **kw)
+        self.c_proj = Linear(width * 4, width, **kw)
 
 
 class MapperBlock(nn.Module):
     """Pre-LN residual block with fused-qkv attention."""
 
-    def __init__(self, width: int, heads: int, dtype, device=None):
+    def __init__(self, width: int, heads: int, dtype, param_dtype=None,
+                 device=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.heads = heads
         self.ln_1 = LayerNorm(width, device=device)
-        self.attn = _MapperAttention(width, dtype, device)
+        self.attn = _MapperAttention(width, kw)
         self.ln_2 = LayerNorm(width, device=device)
-        self.mlp = _MapperMLP(width, dtype, device)
+        self.mlp = _MapperMLP(width, kw)
 
     def forward(self, x):
         b, n, w = x.shape
@@ -178,10 +180,11 @@ class MapperTransformer(nn.Module):
     """The trainable 5-layer/width-768/1-head mapper over a single token."""
 
     def __init__(self, width: int = 768, layers: int = 5, heads: int = 1,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         self.resblocks = nn.ModuleList([
-            MapperBlock(width, heads, dtype, device) for _ in range(layers)])
+            MapperBlock(width, heads, dtype, param_dtype, device)
+            for _ in range(layers)])
 
     def forward(self, x):
         for blk in self.resblocks:
@@ -191,12 +194,17 @@ class MapperTransformer(nn.Module):
 
 class CLIPConditioner(nn.Module):
     """Frozen CLIP tower + mapper2/final_ln2 head:
-    (B,3,224,224) CLIP-normalized -> (B, 1, 768) fp32."""
+    (B,3,224,224) CLIP-normalized -> (B, 1, 768) fp32.
 
-    def __init__(self, vision: CLIPVisionConfig = CLIPVisionConfig(), device=None):
+    param_dtype: storage dtype of the trainable mapper's weights (training
+    keeps them in fp32); the frozen tower keeps its compute dtype."""
+
+    def __init__(self, vision: CLIPVisionConfig = CLIPVisionConfig(), device=None,
+                 param_dtype=None):
         super().__init__()
         self.model = CLIPVisionTower(vision, device=device)
-        self.mapper2 = MapperTransformer(dtype=vision.dtype, device=device)
+        self.mapper2 = MapperTransformer(dtype=vision.dtype,
+                                         param_dtype=param_dtype, device=device)
         self.final_ln2 = LayerNorm(768, device=device)
 
     def forward(self, x):

@@ -37,19 +37,25 @@ class ConditionerConfig:
 
 
 class REFaceConditioner(nn.Module):
-    """Produces the (B, 1, 768) cross-attention context and the CFG null token."""
+    """Produces the (B, 1, 768) cross-attention context and the CFG null token.
 
-    def __init__(self, config: ConditionerConfig = ConditionerConfig(), device=None):
+    param_dtype: storage dtype of the trainable heads' weights (the mapper
+    and the fp32 projections); the frozen CLIP and IR-SE-50 towers keep
+    their compute dtype."""
+
+    def __init__(self, config: ConditionerConfig = ConditionerConfig(), device=None,
+                 param_dtype=None):
         super().__init__()
         self.config = cfg = config
         d = cfg.context_dim
-        self.cond_stage_model = CLIPConditioner(cfg.clip, device=device)
+        kw = dict(param_dtype=param_dtype, device=device)
+        self.cond_stage_model = CLIPConditioner(cfg.clip, **kw)
         self.face_ID_model = nn.Module()
         self.face_ID_model.facenet = IRSE50(cfg.arcface, device=device)
-        self.proj_out_source = Linear(cfg.clip.projection_dim, d, device=device)
-        self.proj_out_target = Linear(cfg.clip.projection_dim, d, device=device)
-        self.ID_proj_out = Linear(cfg.arcface.embed_dim, d, device=device)
-        self.landmark_proj_out = Linear(cfg.landmark_dim, d, device=device)
+        self.proj_out_source = Linear(cfg.clip.projection_dim, d, **kw)
+        self.proj_out_target = Linear(cfg.clip.projection_dim, d, **kw)
+        self.ID_proj_out = Linear(cfg.arcface.embed_dim, d, **kw)
+        self.landmark_proj_out = Linear(cfg.landmark_dim, d, **kw)
         self.learnable_vector = nn.Parameter(torch.zeros(1, 1, d, device=device))
 
     def fuse(self, c_clip, c_id, c_lm=None):

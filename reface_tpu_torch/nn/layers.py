@@ -1,10 +1,15 @@
 """Shared building blocks (port of reface_tpu/nn/layers.py), NCHW.
 
 Dtype policy, as in the JAX package: each Linear/Conv computes in its
-module's `dtype` (bf16 by default), and keeps its weight in that dtype,
-which is the same arithmetic as the JAX package's fp32 params cast at each
-use. Norms keep fp32 params and compute in fp32: GroupNorm32 returns the
-input dtype, LayerNorm returns the dtype it is built with.
+module's `dtype` (bf16 by default) and keeps its weight and bias in
+`param_dtype`, casting them and the input to `dtype` at each use (flax's
+dtype/param_dtype split). param_dtype defaults to `dtype`: serving stores
+bf16 weights, which is the same arithmetic as the JAX package's fp32 params
+cast at each use; training builds the modules it updates with fp32 weights
+(pipelines/train.py), as flax keeps them, so that AdamW's small updates are
+not lost to bf16 rounding. Norms keep fp32 params and compute in fp32:
+GroupNorm32 returns the input dtype, LayerNorm returns the dtype it is built
+with.
 
 Parameter names follow the reference torch checkpoints, so a state_dict of
 the reference loads as it is (e.g. `to_out.0.weight`, `ff.net.0.proj.bias`).
@@ -29,15 +34,28 @@ def check_quant(quant: str) -> None:
             f"quant={quant!r} is not ported yet (ROADMAP A10)")
 
 
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
-    """nn.Linear whose weight lives in `dtype` and that casts its input to it."""
+    """nn.Linear computing in `dtype` with its weight and bias stored in
+    `param_dtype` (default `dtype`)."""
+
+    def __init__(self, in_features, out_features, bias=True,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose weight lives in `dtype` and that casts its input to it.
+    """nn.Conv2d computing in `dtype` with its weight and bias stored in
+    `param_dtype` (default `dtype`).
 
     zero_init marks the layers the reference zero-initialises (ResBlock and
     UNet output convs, SpatialTransformer.proj_out); pipelines/swap.py's
@@ -45,14 +63,17 @@ class Conv2d(nn.Conv2d):
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
-                 bias=True, dtype=torch.float32, device=None,
+                 bias=True, dtype=torch.float32, param_dtype=None, device=None,
                  zero_init: bool = False):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
-                         padding=padding, bias=bias, dtype=dtype, device=device)
+                         padding=padding, bias=bias, dtype=param_dtype or dtype,
+                         device=device)
+        self.compute_dtype = dtype
         self.zero_init = zero_init
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class GroupNorm32(nn.Module):
@@ -98,10 +119,11 @@ class LayerNorm(nn.LayerNorm):
 class Upsample(nn.Module):
     """Nearest 2x upsample then a 3x3 conv (the UNet's and the VAE's)."""
 
-    def __init__(self, channels: int, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype,
-                           device=device)
+                           param_dtype=param_dtype, device=device)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -118,21 +140,21 @@ class CrossAttention(nn.Module):
 
     def __init__(self, query_dim: int, context_dim: int | None = None,
                  heads: int = 8, dim_head: int = 64, head_splits=(6, 2),
-                 dtype=torch.float32, attn_impl: str = "auto",
+                 dtype=torch.float32, param_dtype=None, attn_impl: str = "auto",
                  quant: str = "none", device=None):
         super().__init__()
         check_quant(quant)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
         self.heads, self.dim_head, self.inner = heads, dim_head, inner
         self.ctx_dim = ctx_dim
         self.head_splits = head_splits
         self.attn_impl = attn_impl
-        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype, device=device)
-        self.to_k = Linear(ctx_dim, inner, bias=False, dtype=dtype, device=device)
-        self.to_v = Linear(ctx_dim, inner, bias=False, dtype=dtype, device=device)
-        self.to_out = nn.Sequential(
-            Linear(inner, query_dim, dtype=dtype, device=device), nn.Identity())
+        self.to_q = Linear(query_dim, inner, bias=False, **kw)
+        self.to_k = Linear(ctx_dim, inner, bias=False, **kw)
+        self.to_v = Linear(ctx_dim, inner, bias=False, **kw)
+        self.to_out = nn.Sequential(Linear(inner, query_dim, **kw), nn.Identity())
 
     def _split_context(self, proj, ctx):
         """Project a 2*ctx_dim split context: heads[:s0] from the first half,
@@ -167,9 +189,9 @@ class CrossAttention(nn.Module):
 
 
 class _GEGLUProj(nn.Module):
-    def __init__(self, dim, inner, dtype, device):
+    def __init__(self, dim, inner, kw):
         super().__init__()
-        self.proj = Linear(dim, inner * 2, dtype=dtype, device=device)
+        self.proj = Linear(dim, inner * 2, **kw)
 
 
 class FeedForwardGEGLU(nn.Module):
@@ -180,14 +202,15 @@ class FeedForwardGEGLU(nn.Module):
     """
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32,
-                 quant: str = "none", device=None):
+                 param_dtype=None, quant: str = "none", device=None):
         super().__init__()
         check_quant(quant)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         inner = dim * mult
         self.net = nn.ModuleList([
-            _GEGLUProj(dim, inner, dtype, device),
+            _GEGLUProj(dim, inner, kw),
             nn.Identity(),
-            Linear(inner, dim, dtype=dtype, device=device),
+            Linear(inner, dim, **kw),
         ])
 
     def forward(self, x):

@@ -5,8 +5,15 @@ Module names are the reference torch checkpoint's (openaimodel.py), e.g.
 REFace `last.ckpt` loads as it is.
 
 Kernels on this path (on a CUDA tensor): the self-attention at 4096 and
-1024 tokens runs K1 (ops/attention_smalld.py); with fused_groupnorm=True
-the ResBlock norms and the output norm run K3 (ops/groupnorm.py).
+1024 tokens runs K1 (ops/attention_smalld.py), or, with attn_impl="flash"
+(training), the differentiable FlashAttention (ops/attention.py: the
+residual K2 forward, K4/K5 in the backward); with fused_groupnorm=True the
+ResBlock norms and the output norm run K3 (ops/groupnorm.py).
+
+`param_dtype` (UNetModel's argument) stores the Linear/Conv weights in
+another dtype than the compute dtype: training keeps them in fp32
+(nn/layers.py). remat=True recomputes each ResBlock and SpatialTransformer
+in the backward (torch.utils.checkpoint) while gradients are recorded.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from reface_tpu_torch.core.schedules import timestep_embedding
 from reface_tpu_torch.nn.layers import (
@@ -46,19 +54,22 @@ class UNetConfig:
     transformer_depth: int = 1
     context_dim: int = 768
     dtype: torch.dtype = torch.bfloat16
+    # recompute each ResBlock / SpatialTransformer in the backward (training)
+    remat: bool = False
     # fuse GroupNorm+SiLU into kernel K3 (ops/groupnorm.py); same params
     fused_groupnorm: bool = False
     # self-attention: "auto" (K1 routing), "fast" (K1 without the softmax
-    # shift), "einsum" (plain product)
+    # shift), "flash" (differentiable, training), "einsum" (plain product)
     attn_impl: str = "auto"
     quant: str = "none"
 
 
 class ResBlock(nn.Module):
     def __init__(self, channels: int, out_channels: int, emb_channels: int,
-                 dtype=torch.float32, fused_gn: bool = False, device=None):
+                 dtype=torch.float32, param_dtype=None, fused_gn: bool = False,
+                 device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.fused_gn = fused_gn
         self.in_layers = nn.Sequential(
             GroupNorm32(channels, fuse_silu=fused_gn, device=device),
@@ -89,15 +100,16 @@ class ResBlock(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, channels: int, num_heads: int, context_dim: int,
-                 dtype=torch.float32, attn_impl: str = "auto", device=None):
+                 dtype=torch.float32, param_dtype=None, attn_impl: str = "auto",
+                 device=None):
         super().__init__()
         d = channels // num_heads
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.attn1 = CrossAttention(channels, heads=num_heads, dim_head=d,
-                                    dtype=dtype, attn_impl=attn_impl, device=device)
-        self.ff = FeedForwardGEGLU(channels, dtype=dtype, device=device)
+                                    attn_impl=attn_impl, **kw)
+        self.ff = FeedForwardGEGLU(channels, **kw)
         self.attn2 = CrossAttention(channels, context_dim=context_dim,
-                                    heads=num_heads, dim_head=d, dtype=dtype,
-                                    device=device)
+                                    heads=num_heads, dim_head=d, **kw)
         self.norm1 = LayerNorm(channels, out_dtype=dtype, device=device)
         self.norm2 = LayerNorm(channels, out_dtype=dtype, device=device)
         self.norm3 = LayerNorm(channels, out_dtype=dtype, device=device)
@@ -115,15 +127,15 @@ class TransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     def __init__(self, channels: int, num_heads: int, context_dim: int,
-                 depth: int = 1, dtype=torch.float32, attn_impl: str = "auto",
-                 device=None):
+                 depth: int = 1, dtype=torch.float32, param_dtype=None,
+                 attn_impl: str = "auto", device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.norm = GroupNorm32(channels, eps=1e-6, device=device)
         self.proj_in = Conv2d(channels, channels, 1, **kw)
         self.transformer_blocks = nn.ModuleList([
-            TransformerBlock(channels, num_heads, context_dim, dtype=dtype,
-                             attn_impl=attn_impl, device=device)
+            TransformerBlock(channels, num_heads, context_dim,
+                             attn_impl=attn_impl, **kw)
             for _ in range(depth)])
         self.proj_out = Conv2d(channels, channels, 1, zero_init=True, **kw)
 
@@ -141,22 +153,24 @@ class SpatialTransformer(nn.Module):
 
 
 class Downsample(nn.Module):
-    def __init__(self, channels: int, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         self.op = Conv2d(channels, channels, 3, stride=2, padding=1,
-                         dtype=dtype, device=device)
+                         dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(self, x):
         return self.op(x)
 
 
 class UNetModel(nn.Module):
-    def __init__(self, config: UNetConfig = UNetConfig(), device=None):
+    def __init__(self, config: UNetConfig = UNetConfig(), device=None,
+                 param_dtype=None):
         super().__init__()
         cfg = self.config = config
         check_quant(cfg.quant)
         dt, mc = cfg.dtype, cfg.model_channels
-        kw = dict(dtype=dt, device=device)
+        kw = dict(dtype=dt, param_dtype=param_dtype, device=device)
         emb_ch = mc * 4
 
         def res(cin, cout):
@@ -219,17 +233,21 @@ class UNetModel(nn.Module):
         context = context.to(dt)
         expanded = not cfg_expand
 
+        remat = cfg.remat and torch.is_grad_enabled()
+        call = (lambda layer, *a, **kw: checkpoint(layer, *a, use_reentrant=False, **kw)) \
+            if remat else (lambda layer, *a, **kw: layer(*a, **kw))
+
         def run(block, h, emb, expanded):
             for layer in block:
                 if isinstance(layer, ResBlock):
-                    h = layer(h, emb)
+                    h = call(layer, h, emb)
                 elif isinstance(layer, SpatialTransformer):
                     if not expanded:
-                        h = layer(h, context, expand_cfg=True)
+                        h = call(layer, h, context, expand_cfg=True)
                         expanded = True
                         emb = torch.cat([emb, emb], dim=0)
                     else:
-                        h = layer(h, context)
+                        h = call(layer, h, context)
                 else:
                     h = layer(h)
             return h, emb, expanded

@@ -36,6 +36,9 @@ class VAEConfig:
     out_ch: int = 3
     double_z: bool = True
     dtype: torch.dtype = torch.bfloat16
+    # block remat for a backward through the decoder (the full-loss
+    # training path; not ported yet, ROADMAP A12b)
+    remat: bool = False
     quant: str = "none"
 
 
@@ -176,6 +179,10 @@ class AutoencoderKL(nn.Module):
     def __init__(self, config: VAEConfig = VAEConfig(), device=None):
         super().__init__()
         check_quant(config.quant)
+        if config.remat:
+            raise NotImplementedError(
+                "VAEConfig.remat (the full-loss training path) is not ported "
+                "yet (ROADMAP A12b)")
         self.config = config
         self.encoder = Encoder(config, device=device)
         self.decoder = Decoder(config, device=device)

@@ -21,6 +21,10 @@ from reface_tpu_torch.ops import kernels
 __all__ = ["einsum_attention", "self_attention_smalld", "check_operands"]
 
 _LOG2E = math.log2(math.e)  # the kernels take the scale in log2 units
+# the differentiable attention, named when a kernel without a backward is
+# asked for a gradient
+_GRAD_ROUTE = ('differentiate through attn_impl="flash" (ops/attention.py '
+               'FlashAttention) or "einsum"')
 
 
 def einsum_attention(q, k, v, scale: float):
@@ -56,7 +60,8 @@ def self_attention_smalld(q, k, v, scale: float | None = None,
     """(BH, N, D) self-attention. Returns (BH, N, D) in q.dtype.
 
     CUDA: the K1 kernel; D must be a multiple of 8 and at most 256, N == M.
-    fast=True drops the softmax shift (serving mode). CPU: the plain
+    fast=True drops the softmax shift (serving mode). The kernel has no
+    backward: on a CUDA tensor that requires grad it raises. CPU: the plain
     version (which is exact whatever `fast` says, as the JAX package's
     off-TPU path is).
     """
@@ -64,6 +69,7 @@ def self_attention_smalld(q, k, v, scale: float | None = None,
     scale = d**-0.5 if scale is None else scale
     if q.device.type == "cpu":
         return einsum_attention(q, k, v, scale)
+    kernels.refuse_grad("self_attention_smalld", _GRAD_ROUTE, q, k, v)
     check_operands(q, k, v, "self_attention_smalld")
     bh, n, _ = q.shape
     if k.shape[1] != n or d % 8 or d > 256:

@@ -36,10 +36,13 @@ def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,
     """NCHW GroupNorm (+SiLU). scale/bias: (C,) fp32. Returns x.dtype.
 
     CUDA: x must be contiguous (B, C, H, W) in float32 or bfloat16 with
-    C % groups == 0 and H*W % 8 == 0.
+    C % groups == 0 and H*W % 8 == 0. The kernel has no backward (nor has
+    the TPU kernel): on a CUDA tensor that requires grad it raises.
     """
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, scale, bias, groups, eps, silu)
+    kernels.refuse_grad("group_norm_silu", "differentiate through the unfused "
+                        "GroupNorm (fused_groupnorm=False)", x, scale, bias)
     if not x.is_cuda or x.dtype not in kernels.DTYPE_CODE or x.dim() != 4 \
             or not x.is_contiguous():
         raise ValueError("group_norm_silu: x must be a contiguous NCHW "

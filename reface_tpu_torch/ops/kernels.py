@@ -21,11 +21,11 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "SOURCES", "DTYPE_CODE", "build", "library", "check",
-           "count_launch"]
+           "count_launch", "refuse_grad"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("attention_smalld", "attention_wide", "groupnorm")
+SOURCES = ("attention_smalld", "attention_wide", "attention_flash_bwd", "groupnorm")
 _HEADERS = ("common.cuh", "attention_common.cuh")
 # the `dtype` argument of every C entry point; other dtypes are refused
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,6 +39,11 @@ _SIGNATURES = {
     },
     "attention_wide": {
         "reface_wide_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "reface_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "attention_flash_bwd": {
+        "reface_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "reface_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     },
     "groupnorm": {
         "reface_group_norm_partials": [_I, _I, _I],
@@ -111,6 +116,15 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def refuse_grad(what: str, route: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through a kernel that has
+    none: its output would come back detached and the gradient into its
+    inputs would be silently zero. `route` names the differentiable way."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward, and an input "
+                           f"requires grad; {route}")
 
 
 def count_launch(wrapper, shape: tuple) -> None:

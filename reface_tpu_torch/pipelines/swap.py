@@ -120,9 +120,12 @@ def init_params(module: torch.nn.Module, seed: int = 0, dezero: bool = False):
 
 
 class SwapModules:
-    """The three towers on one device, with per-stage helpers."""
+    """The three towers on one device, with per-stage helpers.
 
-    def __init__(self, config: SwapConfig, device=None):
+    param_dtype: storage dtype of the UNet's and the conditioner heads'
+    weights (default: their compute dtype); the trainer passes fp32."""
+
+    def __init__(self, config: SwapConfig, device=None, param_dtype=None):
         self.config = config
         self.device = resolve_device(device)
         for name, val in (("vae_tile", config.vae_tile),
@@ -130,10 +133,11 @@ class SwapModules:
             if val:
                 raise NotImplementedError(
                     f"{name} is not ported yet (ROADMAP A8)")
-        self.unet = UNetModel(config.unet, device=self.device).eval()
+        self.unet = UNetModel(config.unet, device=self.device,
+                              param_dtype=param_dtype).eval()
         self.vae = AutoencoderKL(config.vae, device=self.device).eval()
-        self.conditioner = REFaceConditioner(config.conditioner,
-                                             device=self.device).eval()
+        self.conditioner = REFaceConditioner(config.conditioner, device=self.device,
+                                             param_dtype=param_dtype).eval()
         for m in self.towers().values():
             m.requires_grad_(False)
 

@@ -78,7 +78,8 @@ def test_multi_head_attention_cpu_matches_jax(impl):
 
 
 def test_attention_routing(monkeypatch):
-    """The dispatch picks K1 / K2 / plain by shape as the TPU routing does.
+    """The dispatch picks K1 / K2 / FlashAttention / plain by shape as the TPU
+    routing does.
 
     The wrappers are replaced by recorders and the tensors claim to be on
     the card, so the routing decision itself is what is checked here."""
@@ -87,6 +88,10 @@ def test_attention_routing(monkeypatch):
                         lambda q, k, v, scale, fast: calls.append(("k1", q.shape, fast)) or q)
     monkeypatch.setattr(PA, "wide_attention",
                         lambda q, k, v, scale: calls.append(("k2", q.shape)) or q)
+    monkeypatch.setattr(PA.FlashAttention, "apply",
+                        lambda q, k, v, scale: calls.append(("flash", q.shape)) or q)
+    monkeypatch.setattr(PA, "einsum_attention",
+                        lambda q, k, v, scale: calls.append(("plain", q.shape)) or q)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     z = lambda b, h, n, d: torch.zeros(b, h, n, d)
     PA.attention_bhnd(z(2, 8, 4096, 40), z(2, 8, 4096, 40), z(2, 8, 4096, 40))
@@ -97,9 +102,14 @@ def test_attention_routing(monkeypatch):
     PA.attention_bhnd(z(2, 8, 4096, 40), z(2, 8, 4096, 40), z(2, 8, 4096, 40),
                       impl="einsum")
     assert calls == [("k1", (16, 4096, 40), False), ("k1", (32, 1024, 80), True),
-                     ("k2", (2, 4096, 512))]
-    with pytest.raises(NotImplementedError):
-        PA.attention_bhnd(z(1, 1, 8, 8), z(1, 1, 8, 8), z(1, 1, 8, 8), impl="flash")
+                     ("k2", (2, 4096, 512)), ("plain", (4, 8, 256, 160)),
+                     ("plain", (2, 8, 4096, 40))]
+    # training: "flash" at the UNet's 4096 and 1024 tokens, plain below
+    calls.clear()
+    for n, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
+        PA.attention_bhnd(z(4, 8, n, d), z(4, 8, n, d), z(4, 8, n, d), impl="flash")
+    assert calls == [("flash", (32, 4096, 40)), ("flash", (32, 1024, 80)),
+                     ("plain", (4, 8, 256, 160)), ("plain", (4, 8, 64, 160))]
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take():
@@ -112,6 +122,22 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
     with pytest.raises(ValueError):
         group_norm_silu(torch.zeros(1, 32, 8, 8, device="meta"),
                         torch.ones(32), torch.zeros(32))
+
+
+def test_kernel_wrappers_refuse_to_cut_gradients():
+    """K1/K2/K3 have no backward: on a non-CPU tensor that requires grad
+    each wrapper raises (naming the differentiable route) instead of
+    returning a detached output; under no_grad it goes on to its checks."""
+    q = torch.zeros(2, 512, 40, device="meta", requires_grad=True)
+    x = torch.zeros(1, 32, 8, 8, device="meta", requires_grad=True)
+    calls = [lambda: self_attention_smalld(q, q, q),
+             lambda: PA.wide_attention(q, q, q),
+             lambda: group_norm_silu(x, torch.ones(32), torch.zeros(32))]
+    for call, route in zip(calls, ("flash", "flash", "fused_groupnorm=False")):
+        with pytest.raises(RuntimeError, match=route):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError):
+            call()
 
 
 @pytest.mark.parametrize("shape,groups,eps,silu", [
