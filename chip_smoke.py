@@ -17,7 +17,7 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      (GroupNorm+SiLU) against their plain PyTorch versions at every shape the
      survey found, in bf16 and fp32 (TF32 off), each timed with CUDA events
      beside its bound, its plain version and one PyTorch library call;
-  3. the main path: 512 px, DDIM-50, CFG 3, CFG prefix dedup, 3 requests of
+  3. the main path: 512 px, DDIM-50, CFG 3, CFG prefix dedup, 2 requests of
      batch 2 through FaceSwapper.swap; checks the output and the kernels'
      launch counts;
   4. bf16 against fp32: the UNet (unfused, and UNetConfig(fused_groupnorm=
@@ -28,15 +28,24 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      every kernel wrapper computes its plain version;
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
-     (32,1024,80)), bf16 and fp32: the forward with residuals (K2's o and
-     lse), K4 (dk, dv) and K5 (dq), each timed beside its bound, its plain
-     version and scaled_dot_product_attention;
-  7. the training path: make_train_step(SwapConfig(), ...), the eps-MSE
-     step at batch 4 and 512 px, 3 steps on seeded random weights; checks the
-     loss, that every trainable parameter moved and every frozen one did not,
-     the kernels' launches per step against the plan, one step's loss and
-     UNet gradient against the same step with attn_impl="einsum", and a tiny
-     fp32 step on the card against the CPU port.
+     (32,1024,80)) and of the VAE decoder's mid-block ((1,4096,512),
+     (4,4096,512) and a ragged one), bf16 and fp32: the forward with
+     residuals (K2's o and lse), K4 (dk, dv) and K5 (dq), each timed beside
+     its bound, its plain version and scaled_dot_product_attention;
+  7. the eps-MSE training path: make_train_step(SwapConfig(), ...) at batch 4
+     and 512 px, 2 steps on seeded random weights; checks the loss, that
+     every trainable parameter moved and every frozen one did not, the
+     kernels' launches per step against the plan, one step's loss and UNet
+     gradient against the same step with attn_impl="einsum", and a tiny fp32
+     step on the card against the CPU port;
+  8. the full-loss training path: make_train_step(SwapConfig(), ...,
+     recon=ReconLossConfig()) (eps-MSE plus the 4-step DDIM reconstruction
+     with ID and LPIPS losses) at 512 px, batch 4 if it fits the card, 2
+     steps; checks the metrics, the moved and the frozen tensors, the
+     launches per step and shape against the plan worked out from the config
+     (the VAE decoder under autograd launches FlashAttention at d=512 and
+     never K2), the split_grad=2 step against the monolith, and a tiny fp32
+     full-loss step on the card against the CPU port.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
 ...}. Any failure exits non-zero before that line; without a CUDA device it
@@ -73,6 +82,7 @@ from reface_tpu_torch.pipelines.swap import (
     un_norm,
 )
 from reface_tpu_torch.pipelines.train import (
+    ReconLossConfig,
     TrainConfig,
     make_draws,
     make_train_step,
@@ -84,7 +94,7 @@ from reface_tpu_torch.pipelines.train import (
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 outside the tensor cores
 BATCH = 2
-REQUESTS = 3
+REQUESTS = 2
 UNET_PARAMS = 859_535_364  # UNetConfig(): SD-v1 UNet with the 9-channel conv_in
 # Launches the plan of the slice expects, against which the survey is held.
 # K1: the SpatialTransformers at 64x64 and 32x32 latents (2 + 3 at each);
@@ -119,8 +129,13 @@ KERNELS = (self_attention_smalld, wide_attention, group_norm_silu,
 # Training (phases 6-7). The UNet's self-attention at batch 4: 8 heads of
 # d=40 over 4096 tokens and of d=80 over 1024, five of each per step.
 TRAIN_BATCH = 4
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 TRAIN_SHAPES = ((32, 4096, 4096, 40), (32, 1024, 1024, 80))
+# The VAE decoder's mid-block attention, which the full loss differentiates:
+# one head of d=512 over 4096 tokens. Checked at batch 1, at the training
+# batch and at a ragged shape (N, M not multiples of 64); timed at the
+# training batch.
+WIDE_SHAPES = ((1, 4096, 4096, 512), (TRAIN_BATCH, 4096, 4096, 512), (2, 1000, 1100, 512))
 # Launches per training step, in KERNELS order: under remat the forward of
 # each of the 10 flash self-attentions runs twice; K4 and K5 once each in
 # the backward; K2 once per VAE encode (target and masked target); no K1, no
@@ -464,7 +479,10 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
     kinds = collections.Counter()
     for e in rows:
         name = e.key
-        kind = ("K1/K2 attn_fwd_kernel" if "attn_fwd_kernel" in name else
+        kind = ("K2 d=512 attn_fwd_kernel" if "attn_fwd_kernel<__nv_bfloat16, 16" in name else
+                "K1/K2 attn_fwd_kernel" if "attn_fwd_kernel" in name else
+                "K4 d=512 flash_bwd_dkv_wide" if "flash_bwd_dkv_wide" in name else
+                "K5 d=512 flash_bwd_dq_wide" if "flash_bwd_dq_wide" in name else
                 "K4 flash_bwd_dkv" if "flash_bwd_dkv" in name else
                 "K5 flash_bwd_dq" if "flash_bwd_dq" in name else
                 "K3 gn_" if "gn_partial" in name or "gn_apply" in name else
@@ -577,11 +595,11 @@ def tiny_reference():
 
 # ------------------------------------------------------------------ phase 6
 
-def check_train_kernels(gen):
+def check_train_kernels(gen, shapes):
     """The residual forward (o, lse), K4 (dk, dv) and K5 (dq) against their
-    plain versions at TRAIN_SHAPES, bf16 and fp32 (the backward kernels and
-    their plain versions get the same plain o and lse), then bf16 times.
-    Returns {key: {shape: stats}} for the JSON rows.
+    plain versions at `shapes`, bf16 and fp32 (the backward kernels and
+    their plain versions get the same plain o and lse). Returns the worst
+    errors by kernel.
 
     At each bf16 shape it also reads two faults the limits must catch: the
     plain dV with its last 64-key tile dropped, and the plain dQ without
@@ -599,7 +617,7 @@ def check_train_kernels(gen):
         if kind == "bf16":
             worst[key]["rel"] = max(worst[key]["rel"], rel)
 
-    for bh, n, m, d in TRAIN_SHAPES:
+    for bh, n, m, d in shapes:
         scale = d**-0.5
         for kind, dt in DTYPES.items():
             print(f"  (BH,N,M,D)=({bh},{n},{m},{d})", flush=True)
@@ -640,8 +658,18 @@ def check_train_kernels(gen):
             del q, k, v, do, o_ref, lse_ref, di, dq, dq_ref, dv_ref
             torch.cuda.empty_cache()
 
+    print(f"  worst max_abs_err: " + ", ".join(
+        f"{k} fp32 {w['fp32']:.3e} bf16 {w['bf16']:.3e} (rel L2 {w['rel']:.3e})"
+        for k, w in worst.items()) + f"; lse {worst_lse:.3e}", flush=True)
+    return worst
+
+
+def time_train_kernels(gen, shapes):
+    """bf16 times of the residual forward, K4 and K5 at `shapes`, each beside
+    its bound, its plain version and scaled_dot_product_attention. Returns
+    {key: {shape: stats}} for the JSON rows."""
     stats = {"K2r": {}, "K4": {}, "K5": {}}
-    for bh, n, m, d in TRAIN_SHAPES:
+    for bh, n, m, d in shapes:
         scale = d**-0.5
         q, k, v, do = (torch.randn(bh, x, d, generator=gen, device="cuda", dtype=torch.bfloat16)
                        for x in (n, m, m, n))
@@ -680,10 +708,7 @@ def check_train_kernels(gen):
                   f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, do, o, lse, di, qg, kg, vg
         torch.cuda.empty_cache()
-    print(f"  worst max_abs_err: " + ", ".join(
-        f"{k} fp32 {w['fp32']:.3e} bf16 {w['bf16']:.3e} (rel L2 {w['rel']:.3e})"
-        for k, w in worst.items()) + f"; lse {worst_lse:.3e}", flush=True)
-    return stats, worst
+    return stats
 
 
 # ------------------------------------------------------------------ phase 7
@@ -815,15 +840,20 @@ def train_path():
     return launches, shapes, times, peak
 
 
-def tiny_train_reference():
-    """tiny_swap_config at 256 px, fp32: the eps-MSE loss and every trainable
-    gradient on the card (the UNet's self-attention at 1024 tokens of d=8
-    runs the flash kernels) against the CPU port (plain versions), same
-    weights, batch and draws."""
+def tiny_train_reference(recon=None):
+    """tiny_swap_config at 256 px, fp32: the loss and every trainable
+    gradient on the card against the CPU port (plain versions), same weights,
+    batch and draws. recon=None: the eps-MSE step (the UNet's self-attention
+    at 1024 tokens of d=8 runs the flash kernels). With a ReconLossConfig:
+    the full loss, with a VAE whose mid-block is 512 wide as the real one, so
+    that the decodes under autograd run the flash kernels at d=512 too."""
     cfg = tiny_swap_config(image_size=256)
+    if recon is not None:
+        cfg = dataclasses.replace(cfg, vae=dataclasses.replace(
+            cfg.vae, ch=32, ch_mult=(1, 2, 4, 16)))
     tcfg = TrainConfig()
-    _, card_loss, card_init = make_train_step(cfg, tcfg, device="cuda")
-    _, cpu_loss, cpu_init = make_train_step(cfg, tcfg, device="cpu")
+    card_step, _, card_init = make_train_step(cfg, tcfg, recon=recon, device="cuda")
+    cpu_step, _, cpu_init = make_train_step(cfg, tcfg, recon=recon, device="cpu")
     card = card_init(seed=30)
     for i, m in enumerate(card.modules.towers().values()):
         init_params(m, seed=30 + i, dezero=True)
@@ -832,14 +862,19 @@ def tiny_train_reference():
     batch = make_request(9, 256, "cpu")
     draws = make_draws(BATCH, 32, tcfg, "cpu", torch.Generator().manual_seed(3))
     draws["drop"][0] = True
+    train_kernels = KERNELS[3:]
+    for kern in train_kernels:
+        kern.shapes = collections.Counter()
     reset_counts()
-    loss_c, _ = card_loss(card.modules, {k: v.cuda() for k, v in batch.items()},
-                          {k: v.cuda() for k, v in draws.items()})
-    loss_c.backward()
+    loss_c, metrics_c = card_step.loss_and_grads(
+        card.modules, {k: v.cuda() for k, v in batch.items()},
+        {k: v.cuda() for k, v in draws.items()})
     torch.cuda.synchronize()
     launched = counts()
-    loss_p, _ = cpu_loss(cpu.modules, batch, draws)
-    loss_p.backward()
+    widths = [sorted({shape[3] for shape in kern.shapes}) for kern in train_kernels]
+    for kern in train_kernels:
+        kern.shapes = None
+    loss_p, metrics_p = cpu_step.loss_and_grads(cpu.modules, batch, draws)
     grads = lambda st: {k: p.grad.cpu() for k, p in named_params(st.modules).items()
                         if p.grad is not None}
     gc, gp = grads(card), grads(cpu)
@@ -847,13 +882,226 @@ def tiny_train_reference():
     worst = max(float((gc[k] - g).norm()) / max(float(g.norm()), 1e-3 * total)
                 for k, g in gp.items())
     rel_loss = abs(loss_c.item() - loss_p.item()) / abs(loss_p.item())
-    print(f"  tiny 256 px step, card vs CPU (fp32): loss rel {rel_loss:.3e}, worst gradient "
-          f"rel L2 {worst:.3e} over {len(gp)} tensors (tol 1e-4); launches K2-residual "
-          f"{launched[3]} K4 {launched[4]} K5 {launched[5]}", flush=True)
-    if gc.keys() != gp.keys() or min(launched[3:]) == 0:
-        fail("the tiny training step did not reach the flash kernels or lost gradients")
-    if not (rel_loss <= 1e-5 and worst <= 1e-4):
-        fail("the card's tiny training step disagrees with the CPU port")
+    rel_metrics = max(abs(metrics_c[k].item() - v.item()) / abs(v.item())
+                      for k, v in metrics_p.items())
+    what = "eps-MSE step" if recon is None else "full-loss step"
+    print(f"  tiny 256 px {what}, card vs CPU (fp32): loss rel {rel_loss:.3e}, metrics "
+          f"{sorted(metrics_p)} rel {rel_metrics:.3e} (tol 1e-5), worst gradient rel L2 "
+          f"{worst:.3e} over {len(gp)} tensors (tol 1e-4); launches K2 {launched[1]} "
+          f"K2-residual {launched[3]} K4 {launched[4]} K5 {launched[5]} at head widths "
+          f"{widths}", flush=True)
+    want_widths = [8] if recon is None else [8, 512]
+    if gc.keys() != gp.keys() or any(w != want_widths for w in widths):
+        fail(f"the tiny {what} did not reach the flash kernels at head widths "
+             f"{want_widths} or lost gradients")
+    if not (rel_loss <= 1e-5 and rel_metrics <= 1e-5 and worst <= 1e-4):
+        fail(f"the card's tiny {what} disagrees with the CPU port")
+
+
+# ------------------------------------------------------------------ phase 8
+
+FULL_STEPS = 2
+# Phase 8: the split_grad=2 step against the monolith on the same weights,
+# batch and draws, bf16 on the card. Both run the same deterministic kernels
+# on the same values; the gradients are summed into .grad in another order
+# (the recon portion's, then the eps portion's), and cuDNN's and cuBLAS's
+# backward kernels may sum in an order that changes from run to run. Seen on
+# the H100: the same loss to the last digit, gradient 3.3e-4 relative L2 over
+# all trainable tensors; the limit is 3x that, and far below the 1.9e-3 by
+# which flash and einsum attention differ in phase 7.
+SPLIT_TOL = {"loss": 1e-5, "grad": 1e-3}
+
+
+def full_loss_plan(recon, batch: int) -> dict:
+    """Launches per full-loss step, by wrapper and (BH,N,M,D), worked out
+    from the configuration. The UNet runs 1 + ddim_steps passes under
+    autograd, each with 5 flash self-attentions at 4096 tokens (d=40) and 5
+    at 1024 (d=80), whose forward runs twice under block remat. Three latents
+    are collected and decoded: the noisy input, which depends on no parameter
+    (one forward, no backward), and the first and last pred_x0 (under the
+    towers' checkpoint: forward twice, K4 and K5 once). The two VAE encodes
+    run without gradients through K2. No K1, no K3."""
+    passes = 1 + recon.ddim_steps
+    unet = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
+    wide = (batch, 4096, 4096, 512)
+    n_dec, n_grad = 3, 2
+    return {
+        "self_attention_smalld": {},
+        "wide_attention": {wide: 2},
+        "group_norm_silu": {},
+        "flash_attention_fwd": {**{k: 2 * c * passes for k, c in unet.items()},
+                                wide: n_dec + n_grad},
+        "flash_bwd_dkv": {**{k: c * passes for k, c in unet.items()}, wide: n_grad},
+        "flash_bwd_dq": {**{k: c * passes for k, c in unet.items()}, wide: n_grad},
+    }
+
+
+def decode_under_autograd(modules):
+    """The VAE built for training decodes a latent that requires grad: the
+    forward launches FlashAttention's forward at d=512 and never K2 (which
+    has no backward), the backward K4 and K5 once each."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    z = torch.randn((1, 4, 64, 64), generator=g, device="cuda").requires_grad_()
+    before = counts()
+    img = modules.decode_latent(z)
+    fwd = tuple(x - y for x, y in zip(counts(), before))
+    img.square().mean().backward()
+    torch.cuda.synchronize()
+    both = tuple(x - y for x, y in zip(counts(), before))
+    ok = bool(torch.isfinite(z.grad).all()) and bool(z.grad.any())
+    print(f"  one decode under autograd (VAE remat {modules.vae.config.remat}): launches "
+          f"(K1, K2, K3, K2-residual, K4, K5) forward {fwd}, with the backward {both}; "
+          f"latent gradient finite and non-zero {ok}", flush=True)
+    if fwd != (0, 0, 0, 1, 0, 0) or both != (0, 0, 0, 1, 1, 1) or not ok:
+        fail("the decode under autograd did not run FlashAttention (forward, K4, K5) "
+             "at d=512, or launched K2")
+
+
+def all_grads(modules):
+    return {k: p.grad.float().clone() for k, p in named_params(modules).items()
+            if p.grad is not None}
+
+
+def full_loss_path():
+    """The full-loss step at full width (phase 8). Returns (launches of the
+    main path in KERNELS order, launches by wrapper and shape per step and
+    over the run, step times, peak memory, batch)."""
+    cfg = SwapConfig()
+    recon = ReconLossConfig()
+    tcfg = TrainConfig(warmup_steps=1)  # as phase 7: every trainable moves
+    train_step, _, init_state = make_train_step(cfg, tcfg, recon=recon, device="cuda")
+    split_step, _, _ = make_train_step(cfg, dataclasses.replace(tcfg, split_grad=2),
+                                       recon=recon, device="cuda")
+    t0 = time.perf_counter()
+    state = init_state(seed=0)
+    for i, m in enumerate(state.modules.towers().values()):
+        init_params(m, seed=i, dezero=True)  # gradients reach every layer
+    named = named_params(state.modules)
+    labels = trainable_labels(named)
+    n_train = sum(p.numel() for k, p in named.items() if labels[k] == "train")
+    torch.cuda.synchronize()
+    print(f"  built the training towers {sorted(state.modules.towers())} in "
+          f"{time.perf_counter() - t0:.1f} s: {n_train:,} trainable parameters (fp32), "
+          f"UNet remat {state.modules.unet.config.remat}, VAE remat "
+          f"{state.modules.vae.config.remat}, recon {recon}", flush=True)
+    decode_under_autograd(state.modules)
+
+    hw = cfg.latent_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(batch):
+        batches = [make_request(300 + i, cfg.image_size, "cuda", batch=batch)
+                   for i in range(FULL_STEPS)]
+        draws = [make_draws(batch, hw, tcfg, "cuda", gen) for _ in range(FULL_STEPS)]
+        draws[0]["drop"][0] = True  # the null token gets a gradient
+        return batches, draws
+
+    # batch 4 if one forward and backward fits the card, else batch 2
+    batch = TRAIN_BATCH
+    batches, draws = inputs(batch)
+    torch.cuda.reset_peak_memory_stats()
+    reason = None
+    try:
+        train_step.loss_and_grads(state.modules, batches[0], draws[0])
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        reason = str(e).splitlines()[0]
+    if reason is not None:  # outside the handler, which holds the step's tensors
+        print(f"  batch {batch} does not fit the card ({reason}): running batch "
+              f"{batch // 2}", flush=True)
+        for p in named.values():
+            p.grad = None
+        batch //= 2
+        del batches, draws
+        torch.cuda.empty_cache()
+        batches, draws = inputs(batch)
+        torch.cuda.reset_peak_memory_stats()
+        train_step.loss_and_grads(state.modules, batches[0], draws[0])
+        torch.cuda.synchronize()
+    print(f"  batch {batch}: one forward and backward fits (this one also warms up), "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB before the "
+          f"optimizer's first step", flush=True)
+    plan = full_loss_plan(recon, batch)
+    snapshot = {k: p.detach().clone() for k, p in named.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the full-loss path's run starts here
+    times, per_step = [], None
+    run_shapes = {kern.__name__: collections.Counter() for kern in KERNELS}
+    for s in range(FULL_STEPS):
+        before = counts()
+        for kern in KERNELS:
+            kern.shapes = collections.Counter()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, metrics = train_step(state, batches[s], draws[s])
+        b.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step = {kern.__name__: dict(kern.shapes) for kern in KERNELS}
+        for kern in KERNELS:
+            run_shapes[kern.__name__] += kern.shapes
+            kern.shapes = None
+        times.append(wall)
+        d = tuple(x - y for x, y in zip(counts(), before))
+        vals = {k: metrics[k].item() for k in ("loss", "loss_simple", "id_loss", "lpips_loss")}
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
+              + f"; {wall:.3f} s (host enqueue {host:.1f} ms, device {a.elapsed_time(b):.1f} "
+              f"ms), launches K1 +{d[0]} K2 +{d[1]} K3 +{d[2]} K2-residual +{d[3]} K4 "
+              f"+{d[4]} K5 +{d[5]}", flush=True)
+        if not all(map(math.isfinite, vals.values())):
+            fail(f"step {s}: a metric is not finite: {vals}")
+        if per_step != plan:
+            fail(f"step {s}: launches by shape {per_step}, planned {plan}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    print("  launches per step by (BH,N,M,D), equal to the plan worked out from the "
+          "configuration: " + "; ".join(f"{k} {v}" for k, v in per_step.items() if v),
+          flush=True)
+    moved = [k for k, p in named.items() if not torch.equal(p, snapshot[k])]
+    stuck = [k for k in moved if labels[k] == "freeze"] + [
+        k for k in named if labels[k] == "train" and k not in moved]
+    frozen_towers = sorted({k.split(".")[0] for k, v in labels.items() if v == "freeze"})
+    print(f"  after {FULL_STEPS} steps: {sum(labels[k] == 'train' for k in moved)} of "
+          f"{sum(v == 'train' for v in labels.values())} trainable tensors moved, "
+          f"{sum(labels[k] == 'freeze' for k in moved)} of "
+          f"{sum(v == 'freeze' for v in labels.values())} frozen ones did (frozen "
+          f"tensors in {frozen_towers})", flush=True)
+    if stuck or frozen_towers != ["conditioner", "lpips", "vae"]:
+        fail(f"trainable tensors that did not move or frozen ones that did: {stuck[:8]}")
+    del snapshot
+    steady = times[1:]
+    mean = sum(steady) / len(steady)
+    print(f"  step time first {times[0]:.3f} s, steady {mean:.3f} s, {batch / mean:.3f} "
+          f"samples/s; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    profile_forward(lambda: train_step(state, batches[0], draws[0]),
+                    what="full-loss training step", grad=True, top=12)
+
+    # split_grad=2 on the same weights, batch and draws as the monolith
+    loss_m, _ = train_step.loss_and_grads(state.modules, batches[0], draws[0])
+    g_m = all_grads(state.modules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_s, metrics_s = split_step.loss_and_grads(state.modules, batches[0], draws[0])
+    g_s = all_grads(state.modules)
+    torch.cuda.synchronize()
+    split_peak = torch.cuda.max_memory_allocated()
+    rel_loss = abs(loss_s.item() - loss_m.item()) / abs(loss_m.item())
+    rel_grad = rel_l2(g_s, g_m)
+    print(f"  split_grad=2 against the monolith, one step (bf16): loss {loss_s.item():.6f} "
+          f"vs {loss_m.item():.6f} (rel {rel_loss:.3e}, tol {SPLIT_TOL['loss']:.0e}), "
+          f"gradient rel L2 {rel_grad:.3e} over {len(g_m)} tensors (tol "
+          f"{SPLIT_TOL['grad']:.0e}); peak memory of the split step "
+          f"{split_peak / 2**30:.2f} GiB, the monolith's gradients held beside it", flush=True)
+    if g_s.keys() != g_m.keys() or sorted(metrics_s) != sorted(metrics) \
+            or not (rel_loss <= SPLIT_TOL["loss"] and rel_grad <= SPLIT_TOL["grad"]):
+        fail("the split_grad=2 step disagrees with the monolith")
+    del state, g_m, g_s
+    torch.cuda.empty_cache()
+    return launches, per_step, run_shapes, times, peak, batch
 
 
 # ------------------------------------------------------------------ main
@@ -921,12 +1169,28 @@ def main():
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
-    train_stats, train_worst = check_train_kernels(gen)
+    train_worst = check_train_kernels(gen, TRAIN_SHAPES)
+    train_stats = time_train_kernels(gen, TRAIN_SHAPES)
+    print("  the same kernels at the VAE decoder's head width, d = 512 (the sliced "
+          "forward of attention_wide.cu, attention_flash_bwd_wide.cu)", flush=True)
+    wide_worst = check_train_kernels(gen, WIDE_SHAPES)
+    wide_stats = time_train_kernels(gen, WIDE_SHAPES[1:2])
 
     print(f"phase 7: the eps-MSE training step, SwapConfig() at {cfg.image_size} px, "
           f"batch {TRAIN_BATCH}, {TRAIN_STEPS} steps", flush=True)
     train_launches, train_shapes, step_times, train_peak = train_path()
     tiny_train_reference()
+
+    print(f"phase 8: the full-loss training step (eps-MSE + DDIM reconstruction with ID "
+          f"and LPIPS losses), SwapConfig() at {cfg.image_size} px, {FULL_STEPS} steps",
+          flush=True)
+    (full_launches, full_per_step, full_run_shapes, full_times, full_peak,
+     full_batch) = full_loss_path()
+    tiny_train_reference(ReconLossConfig())
+    wide_shape = (full_batch, 4096, 4096, 512)
+    if wide_shape not in wide_stats["K2r"]:
+        for key, by_shape in time_train_kernels(gen, [wide_shape]).items():
+            wide_stats[key].update(by_shape)
 
     meta = {
         "K1": ("self_attention_smalld", "reface_tpu_torch/csrc/attention_smalld.cu",
@@ -979,13 +1243,41 @@ def main():
                      "rel_l2_err": w["rel"],
                      "work": f"one training step at batch {TRAIN_BATCH}: "
                              + ", ".join(f"{c}x(BH,N,M,D)={s}" for s, c in per_step.items())})
+    # the same three kernels at d = 512, on the full-loss path (phase 8)
+    for key, (name, _, repl, idx, lib_what) in train_meta.items():
+        src = ("reface_tpu_torch/csrc/attention_wide.cu" if key == "K2r"
+               else "reface_tpu_torch/csrc/attention_flash_bwd_wide.cu")
+        per_step = {sh: c for sh, c in full_per_step[name].items() if sh[3] == 512}
+        total = collections.Counter()
+        for shape, count in per_step.items():
+            for k2, val in wide_stats[key][shape].items():
+                total[k2] += count * val
+        _, by = bound_ms(total["bytes"], total["ops"], "bf16")
+        w = wide_worst[key]
+        rows.append({"name": f"{name}_d512", "route": "cuda", "source": src,
+                     "replaces": f"{repl} (reached from reface_tpu/ops/attention.py:71 by "
+                                 "reface_tpu/nn/vae.py:98)",
+                     "launches": sum(c for sh, c in full_run_shapes[name].items()
+                                     if sh[3] == 512),
+                     "max_abs_err": w["bf16"], "ms": total["ms"],
+                     "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+                     "bound_by": by, "library_ms": total["library_ms"],
+                     "library": lib_what, "tol": TOL[key]["bf16"],
+                     "max_abs_err_fp32": w["fp32"], "rel_l2_err": w["rel"],
+                     "work": f"one full-loss step at batch {full_batch}: "
+                             + ", ".join(f"{c}x(BH,N,M,D)={sh}" for sh, c in per_step.items())})
+    for row, wide_row, idx in zip(rows[3:6], rows[6:9], (3, 4, 5)):  # K2r, K4, K5
+        row["launches_full_loss_path"] = full_launches[idx] - wide_row["launches"]
     steady = lat[1:] or lat
     tsteady = step_times[1:]
+    fsteady = full_times[1:]
     print(f"summary: {smi}; swap latency first {lat[0]:.3f} s, steady "
           f"{sum(steady) / len(steady):.3f} s, {BATCH * len(steady) / sum(steady):.3f} "
           f"swaps/s, peak {peak / 2**30:.2f} GiB; train step (batch {TRAIN_BATCH}) first "
           f"{step_times[0]:.3f} s, steady {sum(tsteady) / len(tsteady):.3f} s, peak "
-          f"{train_peak / 2**30:.2f} GiB; wall {time.perf_counter() - t_start:.1f} s",
+          f"{train_peak / 2**30:.2f} GiB; full-loss step (batch {full_batch}) first "
+          f"{full_times[0]:.3f} s, steady {sum(fsteady) / len(fsteady):.3f} s, peak "
+          f"{full_peak / 2**30:.2f} GiB; wall {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

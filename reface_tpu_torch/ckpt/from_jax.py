@@ -13,7 +13,8 @@ two packages' gradients by name.
 
 Layouts: Dense kernel (in, out) -> weight (out, in); Conv kernel
 (kh, kw, in, out) -> weight (out, in, kh, kw); norm scale/bias ->
-weight/bias; ArcFace's NHWC-flatten output_fc rows -> NCHW-flatten order.
+weight/bias; ArcFace's and the landmark head's NHWC-flatten fc rows ->
+NCHW-flatten order.
 BatchNorm's `num_batches_tracked` (absent from the flax tree) becomes 0.
 """
 
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 
 __all__ = ["unet_from_jax", "vae_from_jax", "clip_conditioner_from_jax",
-           "arcface_from_jax", "conditioner_from_jax", "swap_from_jax"]
+           "arcface_from_jax", "conditioner_from_jax", "lpips_from_jax",
+           "landmark_head_from_jax", "swap_from_jax"]
 
 _ID = lambda a: a
 _NORM = {"scale": "weight", "bias": "bias"}
@@ -235,13 +237,13 @@ def clip_conditioner_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 
 # ---------------------------------------------------------------- ArcFace
 
-def _nhwc_flat_to_nchw_flat(kernel):
-    """Dense kernel over an NHWC-flattened (7,7,C) map -> torch Linear weight
-    over the NCHW-flattened (C,7,7) map."""
-    w = kernel.T  # (out, 7*7*C)
+def _nhwc_flat_to_nchw_flat(kernel, side: int = 7):
+    """Dense kernel over an NHWC-flattened (side,side,C) map -> torch Linear
+    weight over the NCHW-flattened (C,side,side) map."""
+    w = kernel.T  # (out, side*side*C)
     o = w.shape[0]
-    c = w.shape[1] // 49
-    return w.reshape(o, 7, 7, c).transpose(0, 3, 1, 2).reshape(o, c * 49)
+    c = w.shape[1] // (side * side)
+    return w.reshape(o, side, side, c).transpose(0, 3, 1, 2).reshape(o, -1)
 
 
 def _arcface_rule(p):
@@ -286,6 +288,52 @@ def arcface_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return _convert(tree, _arcface_rule)
 
 
+# ---------------------------------------------------------------- LPIPS
+
+# the flax tap index -> torchvision's alexnet.features conv index
+_ALEX_CONV_IDX = {0: 0, 1: 3, 2: 6, 3: 8, 4: 10}
+
+
+def _lpips_rule(p):
+    leaf, top = p[-1], p[0]
+    if top == "alex":
+        idx = _ALEX_CONV_IDX[int(re.match(r"conv(\d)$", p[1]).group(1))]
+        return f"net.layers.{idx}.{_tw(leaf)}", _xform(leaf, "conv")
+    m = re.match(r"lin(\d)$", top)
+    if m:
+        return f"lin.{m.group(1)}.1.weight", _conv
+    raise ValueError(f"unmapped lpips path {'/'.join(p)}")
+
+
+def lpips_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """nn/lpips.py LPIPS params -> the port's LPIPS state_dict, which is also
+    a layout reface_tpu/ckpt/convert.py:convert_lpips reads back."""
+    return _convert(tree, _lpips_rule)
+
+
+# ------------------------------------------------ landmark auxiliary head
+
+_LM_HEAD_CHANNELS = 128  # the head's conv width, the fc's channel count
+
+
+def _landmark_head_rule(p):
+    leaf, top = p[-1], p[0]
+    if top == "conv":
+        return f"conv.{_tw(leaf)}", _xform(leaf, "conv")
+    if top == "fc":
+        if leaf != "kernel":
+            return "fc.bias", _ID
+        side = lambda k: int(round((k.shape[0] // _LM_HEAD_CHANNELS) ** 0.5))
+        return "fc.weight", lambda k: _nhwc_flat_to_nchw_flat(k, side(k))
+    raise ValueError(f"unmapped landmark head path {'/'.join(p)}")
+
+
+def landmark_head_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """LandmarkAuxHead params -> the port's state_dict; the flax head
+    flattens NHWC before fc, the port NCHW."""
+    return _convert(tree, _landmark_head_rule)
+
+
 # ------------------------------------------------------ whole conditioner
 
 _PROJ = {"proj_out_source": "proj_out_source",
@@ -314,6 +362,12 @@ def conditioner_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 def swap_from_jax(tree: Mapping) -> dict[str, dict[str, torch.Tensor]]:
     """The JAX package's {"unet", "vae", "conditioner"} params (or gradients)
     -> the port's {"unet", "vae", "conditioner"} state dicts, the `params`
-    of FaceSwapper and of the trainer's init_state."""
-    return {"unet": unet_from_jax(tree["unet"]), "vae": vae_from_jax(tree["vae"]),
-            "conditioner": conditioner_from_jax(tree["conditioner"])}
+    of FaceSwapper and of the trainer's init_state; the full loss's "lpips"
+    and "landmark_head" trees are carried where the tree holds them."""
+    out = {"unet": unet_from_jax(tree["unet"]), "vae": vae_from_jax(tree["vae"]),
+           "conditioner": conditioner_from_jax(tree["conditioner"])}
+    for name, fn in (("lpips", lpips_from_jax),
+                     ("landmark_head", landmark_head_from_jax)):
+        if name in tree:
+            out[name] = fn(tree[name])
+    return out

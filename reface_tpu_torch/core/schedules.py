@@ -86,7 +86,8 @@ def _f32(x) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Full-resolution (T-step) DDPM tables, all shape (T,) float32 (CPU)."""
+    """Full-resolution (T-step) DDPM tables, all shape (T,) float32 (on the
+    CPU as created)."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
@@ -142,11 +143,17 @@ class DiffusionSchedule:
             ),
         )
 
+    def to(self, device) -> "DiffusionSchedule":
+        """The same tables on `device` (q_sample then indexes them there,
+        with no copy of t to the host)."""
+        return DiffusionSchedule(**{f.name: getattr(self, f.name).to(device)
+                                    for f in dataclasses.fields(self)})
+
     def q_sample(self, x0: torch.Tensor, t: torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:
         """x_t = sqrt(acp_t) x0 + sqrt(1-acp_t) eps, t: (B,) int."""
         shape = (-1,) + (1,) * (x0.ndim - 1)
-        t = t.cpu().long()
+        t = t.to(self.betas.device).long()
         a = self.sqrt_alphas_cumprod[t].reshape(shape).to(x0.device, x0.dtype)
         s = self.sqrt_one_minus_alphas_cumprod[t].reshape(shape).to(
             x0.device, x0.dtype)
@@ -174,7 +181,7 @@ class DDIMTables:
         eta: float = 0.0,
         method: str = "uniform",
     ) -> "DDIMTables":
-        acp = schedule.alphas_cumprod.numpy().astype(np.float64)
+        acp = schedule.alphas_cumprod.cpu().numpy().astype(np.float64)
         ts = make_ddim_timesteps(num_steps, schedule.num_timesteps, method)
         alphas = acp[ts]
         alphas_prev = np.concatenate([[acp[0]], acp[ts[:-1]]])

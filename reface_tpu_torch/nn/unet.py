@@ -38,7 +38,7 @@ from reface_tpu_torch.nn.layers import (
     check_quant,
 )
 
-__all__ = ["UNetConfig", "UNetModel", "ResBlock", "TransformerBlock",
+__all__ = ["UNetConfig", "UNetModel", "decoder_feature_shapes", "ResBlock", "TransformerBlock",
            "SpatialTransformer", "Downsample", "Upsample"]
 
 
@@ -163,6 +163,20 @@ class Downsample(nn.Module):
         return self.op(x)
 
 
+def decoder_feature_shapes(cfg: UNetConfig, latent: int) -> list[tuple[int, int]]:
+    """(channels, spatial size) of each decoder block's output for a
+    latent x latent input: the `return_features` list, from the config."""
+    n = len(cfg.channel_mult)
+    size = latent // 2 ** (n - 1)
+    shapes = []
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            if level and i == cfg.num_res_blocks:
+                size *= 2  # the block ends in an Upsample
+            shapes.append((mult * cfg.model_channels, size))
+    return shapes
+
+
 class UNetModel(nn.Module):
     def __init__(self, config: UNetConfig = UNetConfig(), device=None,
                  param_dtype=None):
@@ -216,14 +230,16 @@ class UNetModel(nn.Module):
             nn.SiLU(),
             Conv2d(ch, cfg.out_channels, 3, padding=1, zero_init=True, **kw))
 
-    def forward(self, x, timesteps, context, cfg_expand: bool = False):
+    def forward(self, x, timesteps, context, cfg_expand: bool = False,
+                return_features: bool = False):
         """x: (B, 9, H, W) latent stack; timesteps: (B,); context: (B, T, 768).
 
         cfg_expand: exact CFG prefix dedup. x and timesteps are ONE half
         batch (B) and context is the CFG pair (2B, uncond first); the stem,
         the first ResBlock and the first self-attention run once at B, and
         the batch doubles at the first context read. Returns eps at 2B.
-        Returns fp32.
+        Returns fp32; with return_features, (eps, the activations after each
+        decoder block), as the landmark auxiliary loss reads them.
         """
         cfg = self.config
         dt = cfg.dtype
@@ -262,13 +278,16 @@ class UNetModel(nn.Module):
             emb = torch.cat([emb, emb], dim=0)
             expanded = True
         h, emb, expanded = run(self.middle_block, h, emb, expanded)
+        features = []
         for block in self.output_blocks:
             skip = hs.pop()
             if skip.shape[0] != h.shape[0]:
                 # saved before the CFG expansion point (shared half)
                 skip = torch.cat([skip, skip], dim=0)
             h, emb, expanded = run(block, torch.cat([h, skip], dim=1), emb, expanded)
+            features.append(h)
         h = self.out[0](h)
         if not cfg.fused_groupnorm:
             h = F.silu(h)
-        return self.out[2](h).float()
+        out = self.out[2](h).float()
+        return (out, features) if return_features else out

@@ -4,7 +4,9 @@ Module names are the reference torch checkpoint's (ldm model.py), e.g.
 `encoder.down.0.block.0.conv1.weight`, so `first_stage_model.*` of a REFace
 `last.ckpt` loads as it is. The mid-block AttnBlock (one head, d=512, over
 4096 tokens at 512 px) runs kernel K2 on the card through the attention
-dispatch. The 0.18215 latent scale is applied by the caller.
+dispatch; with VAEConfig.remat (training through the decoder) the decoder's
+runs the differentiable FlashAttention instead (the residual K2 forward,
+K4/K5 in the backward). The 0.18215 latent scale is applied by the caller.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from reface_tpu_torch.core.distributions import DiagonalGaussian
 from reface_tpu_torch.nn.layers import Conv2d, GroupNorm32, Upsample, check_quant
@@ -36,8 +39,9 @@ class VAEConfig:
     out_ch: int = 3
     double_z: bool = True
     dtype: torch.dtype = torch.bfloat16
-    # block remat for a backward through the decoder (the full-loss
-    # training path; not ported yet, ROADMAP A12b)
+    # built for a backward through the decoder (the full training loss):
+    # the decoder's ResnetBlocks and Upsamples are recomputed in the backward
+    # and its attention is the differentiable FlashAttention
     remat: bool = False
     quant: str = "none"
 
@@ -63,10 +67,18 @@ class ResnetBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head spatial self-attention with 1x1-conv projections."""
+    """Single-head spatial self-attention with 1x1-conv projections.
 
-    def __init__(self, channels: int, dtype=torch.float32, device=None):
+    attn_impl: "auto" (K2 on the card, no backward) or "flash" (the
+    differentiable FlashAttention), ops/attention.py's routing. It is fixed
+    when the block is built and never read from the autograd state, so a
+    checkpointed caller launches the same kernel in its first pass and in
+    its recomputation."""
+
+    def __init__(self, channels: int, dtype=torch.float32, device=None,
+                 attn_impl: str = "auto"):
         super().__init__()
+        self.attn_impl = attn_impl
         kw = dict(dtype=dtype, device=device)
         self.norm = GroupNorm32(channels, eps=1e-6, device=device)
         self.q = Conv2d(channels, channels, 1, **kw)
@@ -79,7 +91,8 @@ class AttnBlock(nn.Module):
         h = self.norm(x)
         tokens = lambda t: t.reshape(b, c, hh * ww).transpose(1, 2)
         o = multi_head_attention(tokens(self.q(h)), tokens(self.k(h)),
-                                 tokens(self.v(h)), num_heads=1)
+                                 tokens(self.v(h)), num_heads=1,
+                                 impl=self.attn_impl)
         return x + self.proj_out(o.transpose(1, 2).reshape(b, c, hh, ww))
 
 
@@ -95,16 +108,16 @@ class Downsample(nn.Module):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
-def _mid(ch, kw):
+def _mid(ch, kw, attn_impl: str = "auto"):
     mid = nn.Module()
     mid.block_1 = ResnetBlock(ch, ch, **kw)
-    mid.attn_1 = AttnBlock(ch, **kw)
+    mid.attn_1 = AttnBlock(ch, attn_impl=attn_impl, **kw)
     mid.block_2 = ResnetBlock(ch, ch, **kw)
     return mid
 
 
-def _run_mid(mid, h):
-    return mid.block_2(mid.attn_1(mid.block_1(h)))
+def _run_mid(mid, h, call=lambda layer, x: layer(x)):
+    return call(mid.block_2, mid.attn_1(call(mid.block_1, h)))
 
 
 class Encoder(nn.Module):
@@ -147,7 +160,7 @@ class Decoder(nn.Module):
         kw = dict(dtype=cfg.dtype, device=device)
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1, **kw)
-        self.mid = _mid(block_in, kw)
+        self.mid = _mid(block_in, kw, attn_impl="flash" if cfg.remat else "auto")
         levels = [None] * len(cfg.ch_mult)
         for i in reversed(range(len(cfg.ch_mult))):
             level = nn.Module()
@@ -163,13 +176,17 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(block_in, cfg.out_ch, 3, padding=1, **kw)
 
     def forward(self, z):
+        # per-block remat, while gradients are recorded (as nn/unet.py)
+        remat = self.config.remat and torch.is_grad_enabled()
+        call = (lambda layer, x: checkpoint(layer, x, use_reentrant=False)) \
+            if remat else (lambda layer, x: layer(x))
         h = self.conv_in(z.to(self.config.dtype))
-        h = _run_mid(self.mid, h)
+        h = _run_mid(self.mid, h, call)
         for level in reversed(self.up):
             for blk in level.block:
-                h = blk(h)
+                h = call(blk, h)
             if hasattr(level, "upsample"):
-                h = level.upsample(h)
+                h = call(level.upsample, h)
         return self.conv_out(F.silu(self.norm_out(h))).float()
 
 
@@ -179,10 +196,6 @@ class AutoencoderKL(nn.Module):
     def __init__(self, config: VAEConfig = VAEConfig(), device=None):
         super().__init__()
         check_quant(config.quant)
-        if config.remat:
-            raise NotImplementedError(
-                "VAEConfig.remat (the full-loss training path) is not ported "
-                "yet (ROADMAP A12b)")
         self.config = config
         self.encoder = Encoder(config, device=device)
         self.decoder = Decoder(config, device=device)

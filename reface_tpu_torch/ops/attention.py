@@ -6,13 +6,20 @@ TPU" read as "on a CUDA tensor":
     -> K1 (ops/attention_smalld.py, the UNet at 4096 and 1024 tokens);
   - otherwise, n >= 1024 and m >= 128: impl "flash" -> `FlashAttention`, the
     differentiable flash attention that training uses (the residual K2
-    forward, then K4/K5 in the backward); "auto"/"fast" -> K2,
-    `wide_attention` (the VAE mid-block: one head of d=512 over 4096 tokens);
+    forward, then K4/K5 in the backward: the UNet's self-attention, and the
+    VAE decoder's mid-block when the recon loss differentiates through it);
+    "auto"/"fast" -> K2, `wide_attention` (the VAE mid-block in serving and
+    in the encodes: one head of d=512 over 4096 tokens);
   - otherwise the plain fp32-softmax product with autograd, which is the JAX
     package's own choice for small n (the UNet at 256 and 64 tokens), not a
     fallback.
 impl="fast" is K1's shift-free serving mode; impl="einsum" forces the plain
-product. K1 and K2 have no backward: asked for a gradient, they raise.
+product. K1 and K2 have no backward: asked for a gradient, they raise. The
+JAX package's one flash_attention call serves both the forward and, through
+its custom VJP, the backward; here the caller's configuration picks
+`FlashAttention` where a gradient will be asked for, never the autograd
+state, so that a checkpointed block runs the same kernel in its first pass
+and in its recomputation.
 """
 
 from __future__ import annotations
@@ -134,14 +141,27 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     return (_dq(q, k, ds),) + _dkv(q, k, v, do, p, ds)
 
 
+# heads wider than one 128-column slice run the sliced kernels (the forward
+# inside csrc/attention_wide.cu, the backward in attention_flash_bwd_wide.cu)
+_SLICE, _WIDE_MAX = 128, 512
+
+
+def _bwd_entry(d: int, name: str):
+    """The C entry point of a backward kernel for head dim d."""
+    if d > _SLICE:
+        return getattr(kernels.library("attention_flash_bwd_wide"), name + "_wide")
+    return getattr(kernels.library("attention_flash_bwd"), name)
+
+
 def _check_flash(what, q, k, v, *rows):
     """Operands of the training kernels: q, k, v as K1/K2 take them, D a
-    multiple of 8 up to 128; `rows` are fp32 (BH, N) row statistics."""
-    check_operands(q, k, v, what)
+    multiple of 8 up to 128 or a multiple of 128 up to 512 (the sliced
+    kernels); `rows` are fp32 (BH, N) row statistics."""
     d = q.shape[-1]
-    if d % 8 or d > 128:
-        raise ValueError(f"{what}: D={d} must be a multiple of 8 up to 128 "
-                         "(wider heads are not ported yet, ROADMAP A12b)")
+    if d % 8 or d > _WIDE_MAX or (d > _SLICE and d % _SLICE):
+        raise ValueError(f"{what}: D={d} must be a multiple of 8 up to {_SLICE}"
+                         f", or a multiple of {_SLICE} up to {_WIDE_MAX}")
+    check_operands(q, k, v, what)
     for r in rows:
         if r.dtype != torch.float32 or r.shape != q.shape[:2] \
                 or r.device != q.device or not r.is_contiguous():
@@ -152,7 +172,8 @@ def _check_flash(what, q, k, v, *rows):
 def flash_attention_fwd(q, k, v, scale: float):
     """The training forward (K2 with residuals): (o, lse).
 
-    CUDA: reface_flash_attention_fwd of csrc/attention_wide.cu. CPU: the
+    CUDA: reface_flash_attention_fwd of csrc/attention_wide.cu (D > 128 is
+    cut into 128-column slices, the first of which writes lse). CPU: the
     plain version, `flash_attention_fwd_plain`.
     """
     if q.device.type == "cpu":
@@ -185,8 +206,9 @@ def _bwd_operands(what, q, k, v, lse, do, di):
 def flash_bwd_dkv(q, k, v, lse, do, di, scale: float):
     """K4: (dk, dv) from the saved lse and di = row_dot(o, do).
 
-    CUDA: reface_flash_bwd_dkv of csrc/attention_flash_bwd.cu. CPU: the
-    plain version.
+    CUDA: reface_flash_bwd_dkv of csrc/attention_flash_bwd.cu, or for
+    D > 128 reface_flash_bwd_dkv_wide of csrc/attention_flash_bwd_wide.cu.
+    CPU: the plain version.
     """
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, lse, do, di, scale)
@@ -196,7 +218,7 @@ def flash_bwd_dkv(q, k, v, lse, do, di, scale: float):
     bh, n, d = q.shape
     m = k.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = kernels.library("attention_flash_bwd").reface_flash_bwd_dkv(
+    rc = _bwd_entry(d, "reface_flash_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, n, m, d, scale,
         kernels.DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
@@ -208,8 +230,9 @@ def flash_bwd_dkv(q, k, v, lse, do, di, scale: float):
 def flash_bwd_dq(q, k, v, lse, do, di, scale: float):
     """K5: dq from the saved lse and di = row_dot(o, do).
 
-    CUDA: reface_flash_bwd_dq of csrc/attention_flash_bwd.cu. CPU: the plain
-    version.
+    CUDA: reface_flash_bwd_dq of csrc/attention_flash_bwd.cu, or for D > 128
+    reface_flash_bwd_dq_wide of csrc/attention_flash_bwd_wide.cu. CPU: the
+    plain version.
     """
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, lse, do, di, scale)
@@ -219,7 +242,7 @@ def flash_bwd_dq(q, k, v, lse, do, di, scale: float):
     bh, n, d = q.shape
     m = k.shape[1]
     dq = torch.empty_like(q)
-    rc = kernels.library("attention_flash_bwd").reface_flash_bwd_dq(
+    rc = _bwd_entry(d, "reface_flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
         di.data_ptr(), dq.data_ptr(), bh, n, m, d, scale,
         kernels.DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)

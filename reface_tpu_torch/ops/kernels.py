@@ -25,8 +25,9 @@ __all__ = ["BUILD_DIR", "SOURCES", "DTYPE_CODE", "build", "library", "check",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("attention_smalld", "attention_wide", "attention_flash_bwd", "groupnorm")
-_HEADERS = ("common.cuh", "attention_common.cuh")
+SOURCES = ("attention_smalld", "attention_wide", "attention_flash_bwd",
+           "attention_flash_bwd_wide", "groupnorm")
+_HEADERS = ("common.cuh", "attention_common.cuh", "attention_flash_bwd.cuh")
 # the `dtype` argument of every C entry point; other dtypes are refused
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "attention_flash_bwd": {
         "reface_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
         "reface_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    },
+    "attention_flash_bwd_wide": {
+        "reface_flash_bwd_dkv_wide": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "reface_flash_bwd_dq_wide": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     },
     "groupnorm": {
         "reface_group_norm_partials": [_I, _I, _I],

@@ -120,7 +120,9 @@ def test_port_imports_no_jax():
         "import reface_tpu_torch, reface_tpu_torch.pipelines.swap, "
         "reface_tpu_torch.pipelines.train, reface_tpu_torch.core.ema, "
         "reface_tpu_torch.core.lr_schedule, reface_tpu_torch.ops.attention, "
-        "reface_tpu_torch.ckpt.from_jax, reface_tpu_torch.ops.kernels\n"
+        "reface_tpu_torch.ckpt.from_jax, reface_tpu_torch.ops.kernels, "
+        "reface_tpu_torch.diffusion.losses, reface_tpu_torch.nn.lpips, "
+        "reface_tpu_torch.nn.landmarks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'flax' or m.startswith('flax.') or m == 'reface_tpu' "
         "or m.startswith('reface_tpu.')]\n"

@@ -23,7 +23,9 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from test_torch_port_helpers import jax_draws as _jax_draws
 from test_torch_port_helpers import random_tree
+from test_torch_port_helpers import train_batch as _batch
 
 from reface_tpu.core import ema as JE
 from reface_tpu.core import lr_schedule as JL
@@ -131,33 +133,6 @@ def test_flash_attention_function_matches_autograd():
 
 
 # ------------------------------------------------------------ the tiny step
-
-def _batch(b=2, size=64, seed=0):
-    rng = np.random.default_rng(seed)
-    target = rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32)
-    mask = (rng.uniform(size=(b, size, size, 1)) > 0.5).astype(np.float32)
-    return dict(
-        target_image=target,
-        inpaint_image=target * mask,
-        inpaint_mask=mask,
-        ref_clip224=rng.normal(size=(b, 224, 224, 3)).astype(np.float32),
-        landmarks=rng.uniform(0, size, (b, 136)).astype(np.float32),
-    )
-
-
-def _jax_draws(key, b, hw, tcfg):
-    """JAX prep's draws (reface_tpu/pipelines/train.py:219-245) from `key`."""
-    kt, kn, ke1, ke2, kd = jax.random.split(key, 5)
-    shape = (b, hw, hw, 4)
-    draws = {
-        "t": jax.random.randint(kt, (b,), 0, tcfg.num_timesteps),
-        "noise": jax.random.normal(kn, shape, jnp.float32),
-        "eps_target": jax.random.normal(ke1, shape, jnp.float32),
-        "eps_inpaint": jax.random.normal(ke2, shape, jnp.float32),
-        "drop": (jax.random.uniform(kd, (b, 1, 1)) < tcfg.u_cond_percent).reshape(b),
-    }
-    return {k: np.array(v) for k, v in draws.items()}
-
 
 @pytest.fixture(scope="module")
 def tiny():
@@ -301,10 +276,14 @@ def test_resolve_train_swap_cfg():
     assert r.unet.remat and not r.vae.remat
     r = PT.resolve_train_swap_cfg(base, PT.TrainConfig(force_unet_remat=False), None)
     assert not r.unet.remat
-    with pytest.raises(NotImplementedError, match="A12b"):
-        PT.make_train_step(base, PT.TrainConfig(), recon=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        PT.make_train_step(base, PT.TrainConfig(split_grad=1), device="cpu")
+    # the full loss and split_grad build (what raised before they were
+    # ported); only a split the step does not know is refused
+    for kw in (dict(), dict(split_grad=1), dict(split_grad=2)):
+        step, _, _ = PT.make_train_step(p_tiny(64), PT.TrainConfig(**kw),
+                                        recon=PT.ReconLossConfig(), device="cpu")
+        assert callable(step.loss_and_grads)
+    with pytest.raises(ValueError, match="split_grad"):
+        PT.make_train_step(base, PT.TrainConfig(split_grad=3), device="cpu")
 
 
 # ------------------------------------------------------------ optimizer, EMA
