@@ -12,11 +12,16 @@ random weights with the reference's zero-initialised layers re-randomised,
 and surveys the kernels' call shapes as their wrappers record them in one
 UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
 
-  1. device: the card's name and power limit (nvidia-smi) and the build time;
+  1. device: the card's name and power limit (nvidia-smi), the build time of
+     each source, and the SASS of the bf16 attention forward (cuobjdump: it
+     must hold wgmma and TMA instructions, HGMMA and UTMALDG);
   2. kernels: K1 (UNet self-attention), K2 (VAE mid-block attention) and K3
      (GroupNorm+SiLU) against their plain PyTorch versions at every shape the
-     survey found, in bf16 and fp32 (TF32 off), each timed with CUDA events
-     beside its bound, its plain version and one PyTorch library call;
+     survey found, and K2 at ragged shapes and D = 40, 80, 256, in bf16 and
+     fp32 (TF32 off); bf16 K2 also against the library's function
+     (flash_attention_fwd_plain, one bf16 ulp) and bit-equal to the residual
+     forward; each timed with CUDA events beside its bound (bytes, tensor
+     operations or exp2s), its plain version and one PyTorch library call;
   3. the main path: 512 px, DDIM-50, CFG 3, CFG prefix dedup, 2 requests of
      batch 2 through FaceSwapper.swap; checks the output and the kernels'
      launch counts;
@@ -28,8 +33,9 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      every kernel wrapper computes its plain version;
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
-     (32,1024,80)) and of the VAE decoder's mid-block ((1,4096,512),
-     (4,4096,512) and a ragged one), bf16 and fp32: the forward with
+     (32,1024,80), and ragged ones at d = 40 and 80) and of the VAE decoder's
+     mid-block ((1,4096,512), (4,4096,512), a ragged one, and a ragged
+     d = 256 off the main path), bf16 and fp32: the forward with
      residuals (K2's o and lse), K4 (dk, dv) and K5 (dq), each timed beside
      its bound, its plain version and scaled_dot_product_attention;
   7. the eps-MSE training path: make_train_step(SwapConfig(), ...) at batch 4
@@ -58,6 +64,7 @@ import collections
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import time
 
@@ -93,6 +100,10 @@ from reface_tpu_torch.pipelines.train import (
 # NVIDIA H100 SXM data sheet (dense, 700 W): the bounds below use these.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 outside the tensor cores
+# exp2 a second on the special-function units: 16 a clock on each of the 132
+# SMs (FlashAttention-3, Shah et al. 2024, section 3). Attention takes one
+# per score, BH*N*M, which binds before the tensor cores at small head dims.
+EXP_PER_S = 3.9e12
 BATCH = 2
 REQUESTS = 2
 UNET_PARAMS = 859_535_364  # UNetConfig(): SD-v1 UNet with the 9-channel conv_in
@@ -105,10 +116,14 @@ PLANNED = {"K1 per UNet forward": 10, "K2 per swap": 2, "K3 per fused UNet forwa
 # Tolerances of kernel vs plain version. fp32: both sides in full fp32 (TF32
 # off), only summation order differs. bf16: the outputs are bf16 (one ulp is
 # 2^-8 relative), and the attention kernels round the probabilities to bf16
-# relative to a running max where the plain version rounds normalised ones;
-# max abs errors seen 1.95e-3 (K1) and 9.77e-4 (K2), while the plain version
-# with one 64-key tile dropped is further off than either limit (phase 2
-# prints by how much). bf16 is also held to a relative L2 error.
+# relative to a running max where einsum_attention rounds normalised ones
+# (K1 also sums the rounded values, the JAX smalld kernel's rule; K2 sums the
+# fp32 ones, the library flash kernel's rule); max abs errors seen 1.95e-3
+# (K1) and 9.77e-4 (K2), while the plain version with its last key tile
+# dropped is further off than either limit (phase 2 prints by how much).
+# bf16 is also held to a relative L2 error. K2 is held besides to
+# flash_attention_fwd_plain's o, which rounds at the same places, within one
+# bf16 ulp of the largest |o| (K2_ULPS).
 TOL = {
     "K1": {"fp32": 2e-5, "bf16": 5e-3},
     "K2": {"fp32": 2e-5, "bf16": 5e-3},
@@ -116,6 +131,7 @@ TOL = {
     "K3": {"fp32": 1e-4, "bf16": 2**-5},
 }
 REL_TOL_BF16 = 1e-2
+K2_ULPS = 1
 # Relative L2 distance of each bf16 tower from an fp32 copy with the same
 # weights (phase 4); random weights, full width. About twice what was seen:
 # UNet 1.42e-2, fused 1.36e-2, VAE encode 1.57e-2, decode 1.17e-2,
@@ -135,7 +151,19 @@ TRAIN_SHAPES = ((32, 4096, 4096, 40), (32, 1024, 1024, 80))
 # one head of d=512 over 4096 tokens. Checked at batch 1, at the training
 # batch and at a ragged shape (N, M not multiples of 64); timed at the
 # training batch.
-WIDE_SHAPES = ((1, 4096, 4096, 512), (TRAIN_BATCH, 4096, 4096, 512), (2, 1000, 1100, 512))
+WIDE_SHAPES = ((1, 4096, 4096, 512), (TRAIN_BATCH, 4096, 4096, 512), (2, 1000, 1100, 512),
+               (2, 1000, 1100, 256))
+# Ragged shapes (N, M not multiples of any tile) at the UNet's head widths,
+# checked beside TRAIN_SHAPES in phase 6; (2, 1000, 1100, 256) above is a
+# width off the main path.
+RAGGED_SHAPES = ((32, 1000, 1100, 40), (4, 1000, 1100, 80))
+
+
+def fwd_key_tile(d: int) -> int:
+    """Keys per tile of the bf16 forward (csrc/attention_fwd_sm90.cuh:
+    kBN = 128 at D <= 128, 32 above): the dropped-tile checks drop these."""
+    return 128 if d <= 128 else 32
+
 # Launches per training step, in KERNELS order: under remat the forward of
 # each of the 10 flash self-attentions runs twice; K4 and K5 once each in
 # the backward; K2 once per VAE encode (target and masked target); no K1, no
@@ -192,11 +220,35 @@ def time_ms(fn, budget_ms: float = 250.0) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(nbytes: float, ops: float, kind: str):
-    """Least time for the work: bytes over HBM rate vs ops over peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, ops: float, kind: str, exps: float = 0.0):
+    """Least time for the work: the largest of bytes over the HBM rate, ops
+    over the peak for `kind`, and exp2 evaluations over EXP_PER_S."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / PEAK_OPS[kind] * 1e3,
+             "exp": exps / EXP_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def check_sass():
+    """The bf16 forward's instructions, from cuobjdump -sass of the built
+    attention_wide library: every attn_fwd_sm90 instance runs wgmma (HGMMA)
+    and TMA loads (UTMALDG), and no instance of the old mma.sync kernel
+    (HMMA) is left there for bf16 to reach."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(kernels.library_path("attention_wide"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    funcs = {f.splitlines()[0].strip(): f for f in sass.split("Function : ")[1:]}
+    new = {n: (f.count("HGMMA"), f.count("UTMALDG")) for n, f in funcs.items()
+           if "attn_fwd_sm90" in n}
+    old_bf16 = [n for n, f in funcs.items() if "attn_fwd_kernel" in n and "HMMA" in f]
+    print(f"  SASS of attention_wide: {len(new)} attn_fwd_sm90 instances, HGMMA / UTMALDG "
+          f"counts {sorted(new.values())}; instances of the old kernel with HMMA "
+          f"(bf16 mma.sync): {len(old_bf16)}", flush=True)
+    if not new or any(h == 0 or t == 0 for h, t in new.values()) or old_bf16:
+        fail("the bf16 forward does not run wgmma and TMA, or the old bf16 kernel is "
+             "still built into attention_wide")
 
 
 # ------------------------------------------------------------------ survey
@@ -258,12 +310,34 @@ def within(name, kind, out, ref, dt):
     return err, rel, ok
 
 
+def ulp_bf16(ref) -> float:
+    """One bf16 ulp (8 significant bits) at the largest magnitude of ref."""
+    return 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+
+
+def check_k2_function(q, k, v, scale, out):
+    """bf16 K2 against the library's function: flash_attention_fwd_plain's o
+    within K2_ULPS bf16 ulps of the largest |o|, and bit-equal to the
+    residual forward's o (one kernel serves both entry points)."""
+    ref = PA.flash_attention_fwd_plain(q, k, v, scale)[0]
+    err = (out.float() - ref.float()).abs().max().item()
+    lim = K2_ULPS * ulp_bf16(ref)
+    same = torch.equal(out, PA.flash_attention_fwd(q, k, v, scale)[0])
+    print(f"    K2 against flash_attention_fwd_plain's o: max_abs_err {err:.3e} (tol "
+          f"{lim:.3e}, {K2_ULPS} bf16 ulp of max |o|); bit-equal to the residual "
+          f"forward's o: {same}", flush=True)
+    if not (err <= lim and same):
+        fail("bf16 K2 is not the library forward's function")
+
+
 def check_attention(name, kernel, shapes, extra_shapes, gen):
     """Error of an attention kernel against einsum_attention, then bf16
     times at the main path's shapes. Returns the kernel's JSON entry.
 
     At each bf16 shape it also reads how far the plain version moves when
-    the last 64-key tile is dropped, a fault the check must catch."""
+    its last key tile is dropped (64 keys for K1, the bf16 forward's kBN for
+    K2), a fault the check must catch. bf16 K2 is held besides to the
+    library's function (check_k2_function)."""
     worst = {"fp32": 0.0, "bf16": 0.0, "rel": 0.0}
     modes = (False, True) if name == "K1" else (False,)
     for shape in list(shapes) + [s for s in extra_shapes if s not in shapes]:
@@ -289,9 +363,12 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
                 if kind == "bf16":
                     worst["rel"] = max(worst["rel"], rel)
             if kind == "bf16":
-                dropped = einsum_attention(q, k[:, :-64], v[:, :-64], scale)
+                if name == "K2":
+                    check_k2_function(q, k, v, scale, out)
+                tile = 64 if name == "K1" else fwd_key_tile(d)
+                dropped = einsum_attention(q, k[:, :-tile], v[:, :-tile], scale)
                 f_err, f_rel, passes = within(name, kind, dropped, ref, dt)
-                print(f"    the plain version with its last 64-key tile dropped: "
+                print(f"    the plain version with its last {tile}-key tile dropped: "
                       f"max_abs_err {f_err:.3e}, rel L2 {f_rel:.3e}: "
                       f"{'NOT CAUGHT' if passes else 'caught'}", flush=True)
                 if passes:
@@ -308,14 +385,15 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
             q[None], k[None], v[None], scale=scale))
         nbytes = 2 * (2 * bh * n * d + 2 * bh * m * d)  # q, k, v in; o out
         ops = 4.0 * bh * n * m * d  # QK^T and PV, 2 ops per multiply-add
-        b, by = bound_ms(nbytes, ops, "bf16")
+        exps = float(bh * n * m)  # one exp2 a score
+        b, by = bound_ms(nbytes, ops, "bf16", exps)
         print(f"  {name} bf16 (BH,N,M,D)=({bh},{n},{m},{d}) x{count}: kernel {ms:.4f} ms, "
               f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
               f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", b), ("ops", ops), ("bytes", nbytes)):
+                         ("bound_ms", b), ("ops", ops), ("bytes", nbytes), ("exps", exps)):
             total[key] += count * val
-    _, by = bound_ms(total["bytes"], total["ops"], "bf16")
+    _, by = bound_ms(total["bytes"], total["ops"], "bf16", total["exps"])
     return {"max_abs_err": worst["bf16"], "max_abs_err_fp32": worst["fp32"],
             "rel_l2_err": worst["rel"],
             "tol": TOL[name]["bf16"], "ms": total["ms"], "plain_ms": total["plain_ms"],
@@ -479,8 +557,9 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
     kinds = collections.Counter()
     for e in rows:
         name = e.key
-        kind = ("K2 d=512 attn_fwd_kernel" if "attn_fwd_kernel<__nv_bfloat16, 16" in name else
-                "K1/K2 attn_fwd_kernel" if "attn_fwd_kernel" in name else
+        kind = ("K2/K2r d=512 attn_fwd_sm90" if "attn_fwd_sm90<512" in name else
+                "K2/K2r attn_fwd_sm90" if "attn_fwd_sm90" in name else
+                "K1 attn_fwd_kernel" if "attn_fwd_kernel" in name else
                 "K4 d=512 flash_bwd_dkv_wide" if "flash_bwd_dkv_wide" in name else
                 "K5 d=512 flash_bwd_dq_wide" if "flash_bwd_dq_wide" in name else
                 "K4 flash_bwd_dkv" if "flash_bwd_dkv" in name else
@@ -601,9 +680,10 @@ def check_train_kernels(gen, shapes):
     their plain versions get the same plain o and lse). Returns the worst
     errors by kernel.
 
-    At each bf16 shape it also reads two faults the limits must catch: the
-    plain dV with its last 64-key tile dropped, and the plain dQ without
-    the last 64 keys' contribution."""
+    At each bf16 shape it also reads three faults the limits must catch:
+    the plain forward's o with its last key tile dropped (the bf16
+    forward's kBN keys), the plain dV with its last 64-key tile dropped,
+    and the plain dQ without the last 64 keys' contribution."""
     worst = {k: {"fp32": 0.0, "bf16": 0.0, "rel": 0.0} for k in ("K2r", "K4", "K5")}
     worst_lse = 0.0
 
@@ -645,16 +725,20 @@ def check_train_kernels(gen, shapes):
             dq_ref = PA.flash_bwd_dq_plain(q, k, v, lse_ref, do, di, scale)
             hold("K5", kind, dq, dq_ref, dt, "flash_bwd_dq dq")
             if kind == "bf16":
+                tile = fwd_key_tile(d)
+                bad_o = PA.flash_attention_fwd_plain(q, k[:, :-tile], v[:, :-tile], scale)[0]
                 bad_dv = dv_ref.clone()
                 bad_dv[:, -64:] = 0
                 bad_dq = PA.flash_bwd_dq_plain(q, k[:, :-64], v[:, :-64], lse_ref, do, di, scale)
-                for key, bad, ref, what in (("K4", bad_dv, dv_ref, "dV with its last 64-key tile dropped"),
+                for key, bad, ref, what in (("K2r", bad_o, o_ref, f"forward's o with its last {tile}-key tile dropped"),
+                                            ("K4", bad_dv, dv_ref, "dV with its last 64-key tile dropped"),
                                             ("K5", bad_dq, dq_ref, "dQ without the last 64 keys")):
                     f_err, f_rel, passes = within(key, kind, bad, ref, dt)
                     print(f"    the plain {what}: max_abs_err {f_err:.3e}, rel L2 "
                           f"{f_rel:.3e}: {'NOT CAUGHT' if passes else 'caught'}", flush=True)
                     if passes:
                         fail(f"{key}'s bf16 tolerance would not catch the {what}")
+                del bad_o, bad_dv, bad_dq
             del q, k, v, do, o_ref, lse_ref, di, dq, dq_ref, dv_ref
             torch.cuda.empty_cache()
 
@@ -686,6 +770,7 @@ def time_train_kernels(gen, shapes):
         sdpa_fb = time_ms(sdpa_fwd_bwd)
         lse_b = 4 * bh * n
         io = lambda *sizes: 2 * sum(bh * x * d for x in sizes)  # bf16 operands
+        exps = float(bh * n * m)  # one exp2 a score, in the forward and in each backward kernel
         rows = {
             "K2r": (lambda: PA.flash_attention_fwd(q, k, v, scale),
                     lambda: PA.flash_attention_fwd_plain(q, k, v, scale),
@@ -699,9 +784,9 @@ def time_train_kernels(gen, shapes):
         }
         for key, (kern, plain, ops, nbytes, lib) in rows.items():
             ms, plain_ms = time_ms(kern), time_ms(plain)
-            b, by = bound_ms(nbytes, ops, "bf16")
+            b, by = bound_ms(nbytes, ops, "bf16", exps)
             stats[key][(bh, n, m, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                                             bound_ms=b, ops=ops, bytes=nbytes)
+                                             bound_ms=b, ops=ops, bytes=nbytes, exps=exps)
             print(f"  {key} bf16 (BH,N,M,D)=({bh},{n},{m},{d}): kernel {ms:.4f} ms, bound "
                   f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
                   f"{'forward' if key == 'K2r' else 'forward+backward'} {lib:.4f} ms, "
@@ -1133,6 +1218,12 @@ def main():
     print(f"  built {len(reports)} kernel libraries in {time.perf_counter() - t0:.1f} s "
           f"(registers per thread {regs}; spill-store bytes of the instances that spill "
           f"{ {n: [b for b in v if b] for n, v in spills.items()} })", flush=True)
+    for name, secs in kernels.BUILD_SECONDS.items():
+        print(f"  nvcc {name}: {secs:.1f} s", flush=True)
+    for line in reports.get("attention_wide", "").splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            print(f"  ptxas attention_wide: {line.strip()[:200]}", flush=True)
+    check_sass()
 
     cfg = SwapConfig()
     swapper = build_swapper(cfg)
@@ -1149,7 +1240,9 @@ def main():
         "K1": check_attention("K1", self_attention_smalld, as4(k1_shapes),
                               [(16, 4096, 4096, 40), (16, 1024, 1024, 80)], gen),
         "K2": check_attention("K2", wide_attention, k2_shapes,
-                              [(1, 4096, 4096, 512)], gen),
+                              [(1, 4096, 4096, 512), (2, 1000, 1100, 512),
+                               (2, 1000, 1100, 256), (8, 1000, 1100, 40),
+                               (4, 1000, 1100, 80)], gen),
         "K3": check_groupnorm(k3_shapes, gen),
     }
 
@@ -1169,10 +1262,11 @@ def main():
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
-    train_worst = check_train_kernels(gen, TRAIN_SHAPES)
+    train_worst = check_train_kernels(gen, TRAIN_SHAPES + RAGGED_SHAPES)
     train_stats = time_train_kernels(gen, TRAIN_SHAPES)
-    print("  the same kernels at the VAE decoder's head width, d = 512 (the sliced "
-          "forward of attention_wide.cu, attention_flash_bwd_wide.cu)", flush=True)
+    print("  the same kernels at the VAE decoder's head width, d = 512 (the split-depth "
+          "bf16 forward of attention_fwd_sm90.cuh, attention_flash_bwd_wide.cu), and "
+          "at d = 256", flush=True)
     wide_worst = check_train_kernels(gen, WIDE_SHAPES)
     wide_stats = time_train_kernels(gen, WIDE_SHAPES[1:2])
 
@@ -1197,7 +1291,7 @@ def main():
                "reface_tpu/ops/attention_smalld.py:118", main_launches[0],
                f"one UNet forward with CFG dedup at batch {BATCH}: "
                + ", ".join(f"{k}x(BH,N,D)={s}" for s, k in k1_shapes.items())),
-        "K2": ("wide_attention", "reface_tpu_torch/csrc/attention_wide.cu",
+        "K2": ("wide_attention", "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
                "reface_tpu/ops/attention.py:71", main_launches[1],
                "one swap (VAE encode + decode): "
                + ", ".join(f"{k}x(BH,N,M,D)={s}" for s, k in k2_shapes.items())),
@@ -1218,7 +1312,7 @@ def main():
     rows[0]["also_replaces"] = "reface_tpu/ops/attention_smalld.py:141"
     lib_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     train_meta = {
-        "K2r": ("flash_attention_fwd", "reface_tpu_torch/csrc/attention_wide.cu",
+        "K2r": ("flash_attention_fwd", "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
                 f"{lib_src}:758", 3, "scaled_dot_product_attention forward"),
         "K4": ("flash_bwd_dkv", "reface_tpu_torch/csrc/attention_flash_bwd.cu",
                f"{lib_src}:1121", 4, "scaled_dot_product_attention forward+backward"),
@@ -1231,7 +1325,7 @@ def main():
         for shape, count in per_step.items():
             for k2, val in train_stats[key][shape].items():
                 total[k2] += count * val
-        _, by = bound_ms(total["bytes"], total["ops"], "bf16")
+        _, by = bound_ms(total["bytes"], total["ops"], "bf16", total["exps"])
         w = train_worst[key]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": f"{repl} (reached from reface_tpu/ops/attention.py:71)",
@@ -1245,14 +1339,14 @@ def main():
                              + ", ".join(f"{c}x(BH,N,M,D)={s}" for s, c in per_step.items())})
     # the same three kernels at d = 512, on the full-loss path (phase 8)
     for key, (name, _, repl, idx, lib_what) in train_meta.items():
-        src = ("reface_tpu_torch/csrc/attention_wide.cu" if key == "K2r"
+        src = ("reface_tpu_torch/csrc/attention_fwd_sm90.cuh" if key == "K2r"
                else "reface_tpu_torch/csrc/attention_flash_bwd_wide.cu")
         per_step = {sh: c for sh, c in full_per_step[name].items() if sh[3] == 512}
         total = collections.Counter()
         for shape, count in per_step.items():
             for k2, val in wide_stats[key][shape].items():
                 total[k2] += count * val
-        _, by = bound_ms(total["bytes"], total["ops"], "bf16")
+        _, by = bound_ms(total["bytes"], total["ops"], "bf16", total["exps"])
         w = wide_worst[key]
         rows.append({"name": f"{name}_d512", "route": "cuda", "source": src,
                      "replaces": f"{repl} (reached from reface_tpu/ops/attention.py:71 by "

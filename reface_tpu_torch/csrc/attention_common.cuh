@@ -10,18 +10,24 @@
 // P V for the warp's rows and the block's output slice. Scores, row sums
 // and the output accumulator are fp32.
 //
-// Numerics are those of reface_tpu/ops/attention_smalld.py: probabilities
-// are exp2 of the log2e-folded scores, rounded to the input dtype before the
-// PV product, and the row sum is taken over those same rounded values (the
-// TPU kernel's ones-column). The running max replaces the TPU kernel's
-// first-256-key shift; softmax is shift-invariant, so both are exact up to
-// where the bf16 rounding of p happens. fast=1 drops the shift entirely.
+// Callers: K1 (attention_smalld.cu) in bf16 and fp32, and K2 / K2 with
+// residuals (attention_wide.cu) in fp32 only; bf16 K2 runs the Hopper kernel
+// of attention_fwd_sm90.cuh.
 //
-// kLse = true is the training forward (the library flash_attention with
-// save_residuals=True): the row sum takes the fp32 probabilities, which are
-// rounded to the input dtype only for the PV product, and each query row's
-// log-sum-exp (natural log, fp32) is written to `lse` for the backward
-// kernels (attention_flash_bwd.cu).
+// kLse = false is K1's rule, that of reface_tpu/ops/attention_smalld.py:
+// probabilities are exp2 of the log2e-folded scores, rounded to the input
+// dtype before the PV product, and the row sum is taken over those same
+// rounded values (the TPU kernel's ones-column). The running max replaces
+// the TPU kernel's first-256-key shift; softmax is shift-invariant, so both
+// are exact up to where the bf16 rounding of p happens. fast=1 drops the
+// shift entirely.
+//
+// kLse = true is the library flash_attention's rule: the row sum takes the
+// fp32 probabilities, which are rounded to the input dtype only for the PV
+// product, and each query row's log-sum-exp (natural log, fp32) is written
+// to `lse` for the backward kernels (attention_flash_bwd.cu). In fp32 the
+// rounding is a no-op, so fp32 K2 (kLse = false) computes the library's
+// function too.
 //
 // bf16 runs its products on the tensor cores with mma.sync m16n8k16
 // (fp32 accumulate). fp32 computes the same fragments with scalar FMAs, in
@@ -298,19 +304,19 @@ inline int launch_attn(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dv must divide d and be a multiple of 8.
-// kLse: the training forward, which also writes lse (see the top note).
-template <int NT, bool kLse = false>
+// K1's launch. dtype: 0 = float32, 1 = bfloat16. dv must divide d and be a
+// multiple of 8.
+template <int NT>
 inline int launch_attn_dtype(int dtype, const void* q, const void* k,
                              const void* v, void* o, int bh, int n, int m,
                              int d, int dv, float scale_log2, int fast,
-                             cudaStream_t stream, float* lse = nullptr) {
+                             cudaStream_t stream) {
   if (dtype == 1)
-    return launch_attn<__nv_bfloat16, NT, kLse>(q, k, v, o, lse, bh, n, m, d,
-                                                dv, scale_log2, fast, stream);
+    return launch_attn<__nv_bfloat16, NT, false>(q, k, v, o, nullptr, bh, n, m, d,
+                                                 dv, scale_log2, fast, stream);
   if (dtype == 0)
-    return launch_attn<float, NT, kLse>(q, k, v, o, lse, bh, n, m, d, dv,
-                                        scale_log2, fast, stream);
+    return launch_attn<float, NT, false>(q, k, v, o, nullptr, bh, n, m, d, dv,
+                                         scale_log2, fast, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,7 +19,10 @@ JAX package's one flash_attention call serves both the forward and, through
 its custom VJP, the backward; here the caller's configuration picks
 `FlashAttention` where a gradient will be asked for, never the autograd
 state, so that a checkpointed block runs the same kernel in its first pass
-and in its recomputation.
+and in its recomputation. K2 and the residual forward compute the same
+function, the library's (fp32 probabilities in the row sum, rounded to the
+input dtype only for the PV product): on the card one bf16 kernel serves
+both (csrc/attention_fwd_sm90.cuh), the second call also writing lse.
 """
 
 from __future__ import annotations
@@ -42,12 +45,19 @@ __all__ = ["multi_head_attention", "attention_bhnd", "wide_attention",
            "flash_bwd_dq_plain", "row_dot"]
 
 
+# heads wider than one 128-column slice run the sliced kernels (the fp32
+# forward inside csrc/attention_wide.cu, the backward in
+# attention_flash_bwd_wide.cu)
+_SLICE, _WIDE_MAX = 128, 512
+
+
 def wide_attention(q, k, v, scale: float | None = None):
     """(BH, N, D) x (BH, M, D) attention forward (kernel K2). Returns q.dtype.
 
-    CUDA: csrc/attention_wide.cu; D must be a multiple of 8, and of 128
-    when above 128; no backward (a CUDA input that requires grad raises).
-    CPU: the plain version, `einsum_attention`.
+    CUDA: csrc/attention_wide.cu (bf16: the Hopper kernel of
+    csrc/attention_fwd_sm90.cuh; fp32: the scalar kernel); D must be a
+    multiple of 8 up to 128, or of 128 up to 512; no backward (a CUDA input
+    that requires grad raises). CPU: the plain version, `einsum_attention`.
     """
     d = q.shape[-1]
     scale = d**-0.5 if scale is None else scale
@@ -55,9 +65,9 @@ def wide_attention(q, k, v, scale: float | None = None):
         return einsum_attention(q, k, v, scale)
     kernels.refuse_grad("wide_attention", _GRAD_ROUTE, q, k, v)
     check_operands(q, k, v, "wide_attention")
-    if d % 8 or (d > 128 and d % 128):
-        raise ValueError(f"wide_attention: D={d} must be a multiple of 8, "
-                         "and of 128 above 128")
+    if d % 8 or d > _WIDE_MAX or (d > _SLICE and d % _SLICE):
+        raise ValueError(f"wide_attention: D={d} must be a multiple of 8 up to "
+                         f"{_SLICE}, or of {_SLICE} up to {_WIDE_MAX}")
     bh, n, _ = q.shape
     out = torch.empty_like(q)
     lib = kernels.library("attention_wide")
@@ -141,9 +151,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     return (_dq(q, k, ds),) + _dkv(q, k, v, do, p, ds)
 
 
-# heads wider than one 128-column slice run the sliced kernels (the forward
-# inside csrc/attention_wide.cu, the backward in attention_flash_bwd_wide.cu)
-_SLICE, _WIDE_MAX = 128, 512
+
 
 
 def _bwd_entry(d: int, name: str):
@@ -172,8 +180,9 @@ def _check_flash(what, q, k, v, *rows):
 def flash_attention_fwd(q, k, v, scale: float):
     """The training forward (K2 with residuals): (o, lse).
 
-    CUDA: reface_flash_attention_fwd of csrc/attention_wide.cu (D > 128 is
-    cut into 128-column slices, the first of which writes lse). CPU: the
+    CUDA: reface_flash_attention_fwd of csrc/attention_wide.cu (bf16: the
+    Hopper kernel of csrc/attention_fwd_sm90.cuh at every D; fp32: the
+    scalar kernel, which cuts D > 128 into 128-column slices). CPU: the
     plain version, `flash_attention_fwd_plain`.
     """
     if q.device.type == "cpu":

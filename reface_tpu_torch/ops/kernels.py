@@ -16,18 +16,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "SOURCES", "DTYPE_CODE", "build", "library", "check",
-           "count_launch", "refuse_grad"]
+__all__ = ["BUILD_DIR", "SOURCES", "DTYPE_CODE", "BUILD_SECONDS", "build", "library",
+           "library_path", "check", "count_launch", "refuse_grad"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("attention_smalld", "attention_wide", "attention_flash_bwd",
            "attention_flash_bwd_wide", "groupnorm")
-_HEADERS = ("common.cuh", "attention_common.cuh", "attention_flash_bwd.cuh")
+_HEADERS = ("common.cuh", "attention_common.cuh", "attention_flash_bwd.cuh",
+            "attention_fwd_sm90.cuh", "wgmma_sm90.cuh")
 # the `dtype` argument of every C entry point; other dtypes are refused
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +59,8 @@ _SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc's wall time for each source built by this process
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -66,7 +70,8 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the built library for csrc/<name>.cu lives (built or not)."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for f in (f"{name}.cu",) + _HEADERS:
         h.update((_CSRC / f).read_bytes())
@@ -79,26 +84,34 @@ def build(names=SOURCES) -> dict[str, str]:
     Returns {name: nvcc's ptxas report} for the sources built by this call;
     raises RuntimeError with nvcc's output if any build fails.
     """
-    todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # nvcc's output goes to a file, not a pipe: nothing blocks on a full buffer
+        log = open(out.with_suffix(f".{os.getpid()}.log"), "w+")
         cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, tmp, out)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        reports[name] = text
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{text}")
-        else:
-            os.replace(tmp, out)
+    while len(reports) < len(procs):
+        for name, (proc, log, tmp, out) in procs.items():
+            if name in reports or proc.poll() is None:
+                continue
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            log.seek(0)
+            reports[name] = text = log.read()
+            log.close()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{text}")
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
@@ -109,7 +122,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
