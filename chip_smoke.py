@@ -13,12 +13,16 @@ and surveys the kernels' call shapes as their wrappers record them in one
 UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
 
   1. device: the card's name and power limit (nvidia-smi), the build time of
-     each source, and the SASS of the bf16 attention forward (cuobjdump: it
-     must hold wgmma and TMA instructions, HGMMA and UTMALDG);
+     each source, and the SASS of the Hopper kernels (cuobjdump: every bf16
+     instance of the attention forward, K1's included, and of K4 at D <= 128
+     must hold wgmma and TMA instructions, HGMMA and UTMALDG, and no bf16
+     mma.sync instance of the old kernels they replace may be left to reach);
   2. kernels: K1 (UNet self-attention), K2 (VAE mid-block attention) and K3
      (GroupNorm+SiLU) against their plain PyTorch versions at every shape the
-     survey found, and K2 at ragged shapes and D = 40, 80, 256, in bf16 and
-     fp32 (TF32 off); bf16 K2 also against the library's function
+     survey found, K1 also at ragged and tiny shapes and K2 at ragged shapes
+     and D = 40, 80, 256, in bf16 and fp32 (TF32 off); bf16 K1 also against
+     the TPU kernel's own function (smalld_attention_plain, both modes, one
+     bf16 ulp), bf16 K2 against the library's function
      (flash_attention_fwd_plain, one bf16 ulp) and bit-equal to the residual
      forward; each timed with CUDA events beside its bound (bytes, tensor
      operations or exp2s), its plain version and one PyTorch library call;
@@ -37,7 +41,9 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      mid-block ((1,4096,512), (4,4096,512), a ragged one, and a ragged
      d = 256 off the main path), bf16 and fp32: the forward with
      residuals (K2's o and lse), K4 (dk, dv) and K5 (dq), each timed beside
-     its bound, its plain version and scaled_dot_product_attention;
+     its bound, its plain version and scaled_dot_product_attention (for K4
+     and K5 its backward alone, which computes dq, dk and dv together from a
+     kept forward, and beside it the forward and backward);
   7. the eps-MSE training path: make_train_step(SwapConfig(), ...) at batch 4
      and 512 px, 2 steps on seeded random weights; checks the loss, that
      every trainable parameter moved and every frozen one did not, the
@@ -64,6 +70,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import time
@@ -78,7 +85,11 @@ from reface_tpu_torch.nn.layers import CrossAttention
 from reface_tpu_torch.ops import attention as PA
 from reface_tpu_torch.ops import kernels
 from reface_tpu_torch.ops.attention import wide_attention
-from reface_tpu_torch.ops.attention_smalld import einsum_attention, self_attention_smalld
+from reface_tpu_torch.ops.attention_smalld import (
+    einsum_attention,
+    self_attention_smalld,
+    smalld_attention_plain,
+)
 from reface_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
 from reface_tpu_torch.pipelines.swap import (
     FaceSwapper,
@@ -116,14 +127,16 @@ PLANNED = {"K1 per UNet forward": 10, "K2 per swap": 2, "K3 per fused UNet forwa
 # Tolerances of kernel vs plain version. fp32: both sides in full fp32 (TF32
 # off), only summation order differs. bf16: the outputs are bf16 (one ulp is
 # 2^-8 relative), and the attention kernels round the probabilities to bf16
-# relative to a running max where einsum_attention rounds normalised ones
-# (K1 also sums the rounded values, the JAX smalld kernel's rule; K2 sums the
-# fp32 ones, the library flash kernel's rule); max abs errors seen 1.95e-3
-# (K1) and 9.77e-4 (K2), while the plain version with its last key tile
-# dropped is further off than either limit (phase 2 prints by how much).
-# bf16 is also held to a relative L2 error. K2 is held besides to
-# flash_attention_fwd_plain's o, which rounds at the same places, within one
-# bf16 ulp of the largest |o| (K2_ULPS).
+# relative to a shift where einsum_attention rounds normalised ones (K1
+# shifts by the max of the first 256 keys, or not at all when fast, and sums
+# the rounded values, the JAX smalld kernel's rule; K2 shifts by a running
+# max and sums the fp32 ones, the library flash kernel's rule); max abs
+# errors seen 1.95e-3 (K1) and 9.77e-4 (K2), while the plain version with its
+# last key tile dropped is further off than either limit (phase 2 prints by
+# how much). bf16 is also held to a relative L2 error. Each is held besides
+# to the plain version of its own function, which rounds at the same places,
+# within one bf16 ulp of the largest |o| (K1_ULPS, K2_ULPS):
+# smalld_attention_plain for K1, flash_attention_fwd_plain's o for K2.
 TOL = {
     "K1": {"fp32": 2e-5, "bf16": 5e-3},
     "K2": {"fp32": 2e-5, "bf16": 5e-3},
@@ -131,7 +144,7 @@ TOL = {
     "K3": {"fp32": 1e-4, "bf16": 2**-5},
 }
 REL_TOL_BF16 = 1e-2
-K2_ULPS = 1
+K1_ULPS = K2_ULPS = 1
 # Relative L2 distance of each bf16 tower from an fp32 copy with the same
 # weights (phase 4); random weights, full width. About twice what was seen:
 # UNet 1.42e-2, fused 1.36e-2, VAE encode 1.57e-2, decode 1.17e-2,
@@ -220,6 +233,23 @@ def time_ms(fn, budget_ms: float = 250.0) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, calls: int = 5) -> float:
+    """Mean device time of fn() from torch.profiler: the kernels it launches,
+    summed, per call. For a library call whose host work outlasts its kernels
+    (autograd's backward at 1024 tokens), where CUDA events time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
 def bound_ms(nbytes: float, ops: float, kind: str, exps: float = 0.0):
     """Least time for the work: the largest of bytes over the HBM rate, ops
     over the peak for `kind`, and exp2 evaluations over EXP_PER_S."""
@@ -230,25 +260,68 @@ def bound_ms(nbytes: float, ops: float, kind: str, exps: float = 0.0):
     return times[by], by
 
 
-def check_sass():
-    """The bf16 forward's instructions, from cuobjdump -sass of the built
-    attention_wide library: every attn_fwd_sm90 instance runs wgmma (HGMMA)
-    and TMA loads (UTMALDG), and no instance of the old mma.sync kernel
-    (HMMA) is left there for bf16 to reach."""
+def ptxas_instances(report: str) -> dict:
+    """{kernel's mangled name: (registers, spill-store bytes)} from nvcc's
+    -Xptxas -v report of one source."""
+    out, name, spill = {}, None, 0
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif "bytes spill stores" in line and name:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name:
+            out[name] = (int(line[line.index("Used"):].split()[1]), spill)
+            name = None
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """attn_fwd_sm90<64,3,128,0,1> for the mangled name of a Hopper kernel
+    instance (template arguments in order, bools as 0/1)."""
+    m = re.search(r"([a-z_]+_sm90)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+
+
+def sass_functions(name: str) -> dict:
+    """{kernel's mangled name: its SASS} from cuobjdump -sass of the built
+    library of csrc/<name>.cu."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(kernels.library_path("attention_wide"))
+    lib = str(kernels.library_path(name))
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    funcs = {f.splitlines()[0].strip(): f for f in sass.split("Function : ")[1:]}
-    new = {n: (f.count("HGMMA"), f.count("UTMALDG")) for n, f in funcs.items()
-           if "attn_fwd_sm90" in n}
-    old_bf16 = [n for n, f in funcs.items() if "attn_fwd_kernel" in n and "HMMA" in f]
-    print(f"  SASS of attention_wide: {len(new)} attn_fwd_sm90 instances, HGMMA / UTMALDG "
-          f"counts {sorted(new.values())}; instances of the old kernel with HMMA "
-          f"(bf16 mma.sync): {len(old_bf16)}", flush=True)
-    if not new or any(h == 0 or t == 0 for h, t in new.values()) or old_bf16:
-        fail("the bf16 forward does not run wgmma and TMA, or the old bf16 kernel is "
-             "still built into attention_wide")
+    return {f.splitlines()[0].strip(): f for f in sass.split("Function : ")[1:]}
+
+
+def check_sass():
+    """The Hopper kernels' instructions. Every bf16 instance of the attention
+    forward (attn_fwd_sm90: K2 and K2r in attention_wide, K1 in
+    attention_smalld) and of K4 at D <= 128 (flash_bwd_dkv_sm90 in
+    attention_flash_bwd) runs wgmma (HGMMA) and TMA loads (UTMALDG); no bf16
+    instance of the old mma.sync kernels (HMMA) is left for them to reach:
+    none of attn_fwd_kernel in attention_wide, only the one for
+    128 < D <= 256 in attention_smalld, none of flash_bwd_dkv_kernel."""
+    want = {"attention_wide": ("attn_fwd_sm90", "attn_fwd_kernel", 0),
+            "attention_smalld": ("attn_fwd_sm90", "attn_fwd_kernel", 1),
+            "attention_flash_bwd": ("flash_bwd_dkv_sm90", "flash_bwd_dkv_kernel", 0)}
+    for lib, (new_name, old_name, old_allowed) in want.items():
+        funcs = sass_functions(lib)
+        new = {n: (f.count("HGMMA"), f.count("UTMALDG")) for n, f in funcs.items()
+               if new_name in n}
+        old_bf16 = [n for n, f in funcs.items() if old_name in n and "HMMA" in f]
+        print(f"  SASS of {lib}: {len(new)} {new_name} instances, HGMMA / UTMALDG counts "
+              f"{sorted(new.values())}; bf16 mma.sync instances of {old_name}: "
+              f"{len(old_bf16)} (allowed {old_allowed})", flush=True)
+        if not new or any(h == 0 or t == 0 for h, t in new.values()) \
+                or len(old_bf16) != old_allowed:
+            fail(f"{lib}: a bf16 Hopper kernel does not run wgmma and TMA, or the old "
+                 f"bf16 kernel {old_name} is still there to reach")
+        if lib == "attention_smalld":  # K1's own rules, and the D > 128 instance only
+            k1 = [n for n in new if "ELb0ELb1EE" in n]  # <..., kSplit false, kSmalld true>
+            if len(k1) != len(new) or any("Li32E" not in n for n in old_bf16):
+                fail("attention_smalld holds a forward without K1's rules, or an old "
+                     "bf16 instance below D = 128")
 
 
 # ------------------------------------------------------------------ survey
@@ -330,6 +403,21 @@ def check_k2_function(q, k, v, scale, out):
         fail("bf16 K2 is not the library forward's function")
 
 
+def check_k1_function(q, k, v, scale, out, fast):
+    """bf16 K1 against the TPU smalld kernel's own function: within K1_ULPS
+    bf16 ulps of the largest |o| of smalld_attention_plain (the fixed
+    first-256-key shift, or none when fast; the row sum of the rounded p).
+    Returns the error."""
+    ref = smalld_attention_plain(q, k, v, scale, fast)
+    err = (out.float() - ref.float()).abs().max().item()
+    lim = K1_ULPS * ulp_bf16(ref)
+    print(f"    K1 against smalld_attention_plain{' (fast)' if fast else ''}: max_abs_err "
+          f"{err:.3e} (tol {lim:.3e}, {K1_ULPS} bf16 ulp of max |o|)", flush=True)
+    if not err <= lim:
+        fail("bf16 K1 is not the TPU smalld kernel's function")
+    return err
+
+
 def check_attention(name, kernel, shapes, extra_shapes, gen):
     """Error of an attention kernel against einsum_attention, then bf16
     times at the main path's shapes. Returns the kernel's JSON entry.
@@ -337,8 +425,9 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
     At each bf16 shape it also reads how far the plain version moves when
     its last key tile is dropped (64 keys for K1, the bf16 forward's kBN for
     K2), a fault the check must catch. bf16 K2 is held besides to the
-    library's function (check_k2_function)."""
-    worst = {"fp32": 0.0, "bf16": 0.0, "rel": 0.0}
+    library's function (check_k2_function), bf16 K1 in both modes to the TPU
+    kernel's (check_k1_function)."""
+    worst = {"fp32": 0.0, "bf16": 0.0, "rel": 0.0, "own": 0.0}
     modes = (False, True) if name == "K1" else (False,)
     for shape in list(shapes) + [s for s in extra_shapes if s not in shapes]:
         bh, n, m, d = shape
@@ -362,6 +451,9 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
                 worst[kind] = max(worst[kind], err)
                 if kind == "bf16":
                     worst["rel"] = max(worst["rel"], rel)
+                    if name == "K1":
+                        worst["own"] = max(worst["own"],
+                                           check_k1_function(q, k, v, scale, out, fast))
             if kind == "bf16":
                 if name == "K2":
                     check_k2_function(q, k, v, scale, out)
@@ -394,11 +486,14 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
                          ("bound_ms", b), ("ops", ops), ("bytes", nbytes), ("exps", exps)):
             total[key] += count * val
     _, by = bound_ms(total["bytes"], total["ops"], "bf16", total["exps"])
-    return {"max_abs_err": worst["bf16"], "max_abs_err_fp32": worst["fp32"],
-            "rel_l2_err": worst["rel"],
-            "tol": TOL[name]["bf16"], "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"], "bound_by": by,
-            "library_ms": total["library_ms"]}
+    entry = {"max_abs_err": worst["bf16"], "max_abs_err_fp32": worst["fp32"],
+             "rel_l2_err": worst["rel"],
+             "tol": TOL[name]["bf16"], "ms": total["ms"], "plain_ms": total["plain_ms"],
+             "bound_ms": total["bound_ms"], "bound_by": by,
+             "library_ms": total["library_ms"]}
+    if name == "K1":
+        entry["max_abs_err_vs_smalld_attention_plain"] = worst["own"]
+    return entry
 
 
 def check_groupnorm(shapes, gen):
@@ -558,6 +653,7 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
     for e in rows:
         name = e.key
         kind = ("K2/K2r d=512 attn_fwd_sm90" if "attn_fwd_sm90<512" in name else
+                "K1 attn_fwd_sm90" if "attn_fwd_sm90" in name and "false, true>" in name else
                 "K2/K2r attn_fwd_sm90" if "attn_fwd_sm90" in name else
                 "K1 attn_fwd_kernel" if "attn_fwd_kernel" in name else
                 "K4 d=512 flash_bwd_dkv_wide" if "flash_bwd_dkv_wide" in name else
@@ -750,8 +846,12 @@ def check_train_kernels(gen, shapes):
 
 def time_train_kernels(gen, shapes):
     """bf16 times of the residual forward, K4 and K5 at `shapes`, each beside
-    its bound, its plain version and scaled_dot_product_attention. Returns
-    {key: {shape: stats}} for the JSON rows."""
+    its bound, its plain version and scaled_dot_product_attention: its
+    forward for K2r; for K4 and K5 its backward alone (one forward kept, then
+    torch.autograd.grad with retain_graph=True: dq, dk and dv together, the
+    work of K4 and K5 together), by CUDA events and by the profiler's device
+    time (device_ms), and beside it one forward and backward, the yardstick
+    of PRs 2-4. Returns {key: {shape: stats}} for the JSON rows."""
     stats = {"K2r": {}, "K4": {}, "K5": {}}
     for bh, n, m, d in shapes:
         scale = d**-0.5
@@ -768,6 +868,10 @@ def time_train_kernels(gen, shapes):
         with torch.no_grad():
             sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale))
         sdpa_fb = time_ms(sdpa_fwd_bwd)
+        kept = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        bwd = lambda: torch.autograd.grad(kept, (qg, kg, vg), do[None], retain_graph=True)
+        sdpa_bwd, sdpa_bwd_dev = time_ms(bwd), device_ms(bwd)
+        del kept, bwd
         lse_b = 4 * bh * n
         io = lambda *sizes: 2 * sum(bh * x * d for x in sizes)  # bf16 operands
         exps = float(bh * n * m)  # one exp2 a score, in the forward and in each backward kernel
@@ -777,19 +881,25 @@ def time_train_kernels(gen, shapes):
                     4.0 * bh * n * m * d, io(n, m, m, n) + lse_b, sdpa_fwd),
             "K4": (lambda: PA.flash_bwd_dkv(q, k, v, lse, do, di, scale),
                    lambda: PA.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale),
-                   8.0 * bh * n * m * d, io(n, m, m, n, m, m) + 2 * lse_b, sdpa_fb),
+                   8.0 * bh * n * m * d, io(n, m, m, n, m, m) + 2 * lse_b, sdpa_bwd),
             "K5": (lambda: PA.flash_bwd_dq(q, k, v, lse, do, di, scale),
                    lambda: PA.flash_bwd_dq_plain(q, k, v, lse, do, di, scale),
-                   6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b, sdpa_fb),
+                   6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b, sdpa_bwd),
         }
         for key, (kern, plain, ops, nbytes, lib) in rows.items():
             ms, plain_ms = time_ms(kern), time_ms(plain)
             b, by = bound_ms(nbytes, ops, "bf16", exps)
             stats[key][(bh, n, m, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                                              bound_ms=b, ops=ops, bytes=nbytes, exps=exps)
+            fb = ""
+            if key != "K2r":
+                stats[key][(bh, n, m, d)].update(library_device_ms=sdpa_bwd_dev,
+                                                 library_fwd_bwd_ms=sdpa_fb)
+                fb = (f" ({sdpa_bwd_dev:.4f} ms of device time; forward+backward "
+                      f"{sdpa_fb:.4f} ms)")
             print(f"  {key} bf16 (BH,N,M,D)=({bh},{n},{m},{d}): kernel {ms:.4f} ms, bound "
                   f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
-                  f"{'forward' if key == 'K2r' else 'forward+backward'} {lib:.4f} ms, "
+                  f"{'forward' if key == 'K2r' else 'backward alone'} {lib:.4f} ms{fb}, "
                   f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, do, o, lse, di, qg, kg, vg
         torch.cuda.empty_cache()
@@ -1211,18 +1321,24 @@ def main():
     reports = kernels.build()
     for name in kernels.SOURCES:
         kernels.library(name)
-    regs = {n: sorted({int(w.split()[1]) for l in r.splitlines() if "Used" in l
-                       for w in [l[l.index("Used"):]]}) for n, r in reports.items()}
-    spills = {n: [int(l.split("bytes spill stores")[0].split(",")[-1])
-                  for l in r.splitlines() if "bytes spill stores" in l] for n, r in reports.items()}
+    inst = {n: ptxas_instances(r) for n, r in reports.items()}
+    regs = {n: sorted({r for r, _ in v.values()}) for n, v in inst.items()}
+    spills = {n: [b for _, b in v.values() if b] for n, v in inst.items()}
     print(f"  built {len(reports)} kernel libraries in {time.perf_counter() - t0:.1f} s "
           f"(registers per thread {regs}; spill-store bytes of the instances that spill "
-          f"{ {n: [b for b in v if b] for n, v in spills.items()} })", flush=True)
+          f"{spills})", flush=True)
+    hopper = {f"{short_name(k)} ({lib})": v for lib, by in inst.items()
+              for k, v in by.items() if "_sm90" in k}
+    print("  ptxas, the Hopper instances (registers, spill-store bytes): "
+          + "; ".join(f"{k} {v}" for k, v in sorted(hopper.items())), flush=True)
+    if any(b for k, (_, b) in hopper.items() if "attn_fwd_sm90<512" not in k):
+        fail("a Hopper kernel instance below D = 512 spills")
     for name, secs in kernels.BUILD_SECONDS.items():
         print(f"  nvcc {name}: {secs:.1f} s", flush=True)
-    for line in reports.get("attention_wide", "").splitlines():
-        if "warning" in line.lower() or "Performance Loss" in line:
-            print(f"  ptxas attention_wide: {line.strip()[:200]}", flush=True)
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"  ptxas {name}: {line.strip()[:200]}", flush=True)
     check_sass()
 
     cfg = SwapConfig()
@@ -1238,7 +1354,8 @@ def main():
     as4 = lambda c: collections.Counter({(bh, n, n, d): k for (bh, n, d), k in c.items()})
     entries = {
         "K1": check_attention("K1", self_attention_smalld, as4(k1_shapes),
-                              [(16, 4096, 4096, 40), (16, 1024, 1024, 80)], gen),
+                              [(16, 4096, 4096, 40), (16, 1024, 1024, 80), (3, 1000, 1000, 40),
+                               (3, 200, 200, 80), (2, 1024, 1024, 8)], gen),
         "K2": check_attention("K2", wide_attention, k2_shapes,
                               [(1, 4096, 4096, 512), (2, 1000, 1100, 512),
                                (2, 1000, 1100, 256), (8, 1000, 1100, 40),
@@ -1287,7 +1404,7 @@ def main():
             wide_stats[key].update(by_shape)
 
     meta = {
-        "K1": ("self_attention_smalld", "reface_tpu_torch/csrc/attention_smalld.cu",
+        "K1": ("self_attention_smalld", "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
                "reface_tpu/ops/attention_smalld.py:118", main_launches[0],
                f"one UNet forward with CFG dedup at batch {BATCH}: "
                + ", ".join(f"{k}x(BH,N,D)={s}" for s, k in k1_shapes.items())),
@@ -1310,15 +1427,22 @@ def main():
                      "tol": e["tol"], "max_abs_err_fp32": e["max_abs_err_fp32"],
                      "rel_l2_err": e["rel_l2_err"], "work": work})
     rows[0]["also_replaces"] = "reface_tpu/ops/attention_smalld.py:141"
+    rows[0]["max_abs_err_vs_smalld_attention_plain"] = entries["K1"][
+        "max_abs_err_vs_smalld_attention_plain"]
     lib_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     train_meta = {
         "K2r": ("flash_attention_fwd", "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
                 f"{lib_src}:758", 3, "scaled_dot_product_attention forward"),
-        "K4": ("flash_bwd_dkv", "reface_tpu_torch/csrc/attention_flash_bwd.cu",
-               f"{lib_src}:1121", 4, "scaled_dot_product_attention forward+backward"),
+        "K4": ("flash_bwd_dkv", "reface_tpu_torch/csrc/attention_bwd_sm90.cuh",
+               f"{lib_src}:1121", 4, "scaled_dot_product_attention backward alone (dq, dk, "
+               "dv from a kept forward)"),
         "K5": ("flash_bwd_dq", "reface_tpu_torch/csrc/attention_flash_bwd.cu",
-               f"{lib_src}:1456", 5, "scaled_dot_product_attention forward+backward"),
+               f"{lib_src}:1456", 5, "scaled_dot_product_attention backward alone (dq, dk, "
+               "dv from a kept forward)"),
     }
+    # K4 and K5 also carry the library backward's device time and the library's
+    # forward+backward time (PRs 2-4's yardstick)
+    fwd_bwd = lambda t: {k: t[k] for k in ("library_device_ms", "library_fwd_bwd_ms") if k in t}
     for key, (name, src, repl, idx, lib_what) in train_meta.items():
         per_step = train_shapes[name]
         total = collections.Counter()
@@ -1334,7 +1458,7 @@ def main():
                      "bound_ms": total["bound_ms"], "bound_by": by,
                      "library_ms": total["library_ms"], "library": lib_what,
                      "tol": TOL[key]["bf16"], "max_abs_err_fp32": w["fp32"],
-                     "rel_l2_err": w["rel"],
+                     "rel_l2_err": w["rel"], **fwd_bwd(total),
                      "work": f"one training step at batch {TRAIN_BATCH}: "
                              + ", ".join(f"{c}x(BH,N,M,D)={s}" for s, c in per_step.items())})
     # the same three kernels at d = 512, on the full-loss path (phase 8)
@@ -1357,7 +1481,7 @@ def main():
                      "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
                      "bound_by": by, "library_ms": total["library_ms"],
                      "library": lib_what, "tol": TOL[key]["bf16"],
-                     "max_abs_err_fp32": w["fp32"], "rel_l2_err": w["rel"],
+                     "max_abs_err_fp32": w["fp32"], "rel_l2_err": w["rel"], **fwd_bwd(total),
                      "work": f"one full-loss step at batch {full_batch}: "
                              + ", ".join(f"{c}x(BH,N,M,D)={sh}" for sh, c in per_step.items())})
     for row, wide_row, idx in zip(rows[3:6], rows[6:9], (3, 4, 5)):  # K2r, K4, K5

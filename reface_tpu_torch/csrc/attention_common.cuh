@@ -10,17 +10,18 @@
 // P V for the warp's rows and the block's output slice. Scores, row sums
 // and the output accumulator are fp32.
 //
-// Callers: K1 (attention_smalld.cu) in bf16 and fp32, and K2 / K2 with
-// residuals (attention_wide.cu) in fp32 only; bf16 K2 runs the Hopper kernel
-// of attention_fwd_sm90.cuh.
+// Callers: K1 (attention_smalld.cu) in fp32, and in bf16 only at
+// 128 < D <= 256, and K2 / K2 with residuals (attention_wide.cu) in fp32
+// only; bf16 K1 at D <= 128 and bf16 K2 run the Hopper kernel of
+// attention_fwd_sm90.cuh.
 //
-// kLse = false is K1's rule, that of reface_tpu/ops/attention_smalld.py:
+// kLse = false is close to K1's rule, that of reface_tpu/ops/attention_smalld.py:
 // probabilities are exp2 of the log2e-folded scores, rounded to the input
 // dtype before the PV product, and the row sum is taken over those same
 // rounded values (the TPU kernel's ones-column). The running max replaces
 // the TPU kernel's first-256-key shift; softmax is shift-invariant, so both
-// are exact up to where the bf16 rounding of p happens. fast=1 drops the
-// shift entirely.
+// are exact up to where the bf16 rounding of p happens (in fp32, exact up to
+// summation order). fast=1 drops the shift entirely.
 //
 // kLse = true is the library flash_attention's rule: the row sum takes the
 // fp32 probabilities, which are rounded to the input dtype only for the PV
@@ -302,22 +303,6 @@ inline int launch_attn(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(v), static_cast<T*>(o), lse, n, m, d, dv,
       scale_log2, fast);
   return (int)cudaGetLastError();
-}
-
-// K1's launch. dtype: 0 = float32, 1 = bfloat16. dv must divide d and be a
-// multiple of 8.
-template <int NT>
-inline int launch_attn_dtype(int dtype, const void* q, const void* k,
-                             const void* v, void* o, int bh, int n, int m,
-                             int d, int dv, float scale_log2, int fast,
-                             cudaStream_t stream) {
-  if (dtype == 1)
-    return launch_attn<__nv_bfloat16, NT, false>(q, k, v, o, nullptr, bh, n, m, d,
-                                                 dv, scale_log2, fast, stream);
-  if (dtype == 0)
-    return launch_attn<float, NT, false>(q, k, v, o, nullptr, bh, n, m, d, dv,
-                                         scale_log2, fast, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace reface

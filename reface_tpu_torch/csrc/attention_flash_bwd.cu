@@ -18,12 +18,18 @@
 // (32, 4096, 40) that is 172 and 129 GFLOP against ~13 MB of operands and
 // results, far above the card's ~295 bf16 flop/byte ridge.
 //
+// Dispatch, by dtype, never as a fallback: bf16 dK/dV runs the Hopper kernel
+// of attention_bwd_sm90.cuh (wgmma, TMA, a producer warp; no bf16 instance
+// of flash_bwd_dkv_kernel is built); fp32 dK/dV and both dtypes of dQ run
+// the kernels below.
+//
 // Design. The library splits the backward into a dK/dV kernel and a dQ kernel
 // so that neither needs atomics; so does this port, and both are
 // deterministic. A TPU grid walks its last axis in order and carries dK/dV
 // (or dQ) in scratch from one step to the next; here one block owns one
 // 64-row tile of the result and loops over the other sequence itself:
-//   K4: one block per 64-key tile and (batch*head), K and V resident in
+//   K4 (fp32 here; bf16 in attention_bwd_sm90.cuh, 128 keys a block): one
+//       block per 64-key tile and (batch*head), K and V resident in
 //       shared memory, looping over 64-query tiles of Q, dO, lse and di;
 //   K5: one block per 64-query tile and (batch*head), Q and dO resident,
 //       looping over 64-key tiles of K and V.
@@ -40,9 +46,10 @@
 // as on the TPU; the QK^T depth is padded to 16 in shared memory only). The
 // ragged edges are masked: queries past N get lse = +inf, so P = 0; keys past M
 // get P = 0 in K5 and are not stored by K4. Simple and right first: no TMA,
-// no wgmma, no pipelining of the tile loads. Wider heads (the VAE decoder's
+// no wgmma, no pipelining of the tile loads (K5 in bf16 still runs so). Wider heads (the VAE decoder's
 // d=512) run the sliced kernels of attention_flash_bwd_wide.cu; the per-warp
 // products and the tile staging both files use are in attention_flash_bwd.cuh.
+#include "attention_bwd_sm90.cuh"
 #include "attention_flash_bwd.cuh"
 
 namespace reface {
@@ -274,22 +281,16 @@ inline int launch_dq(const void* q, const void* k, const void* v, const void* ls
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the results); lse and
 // di are fp32 (BH, N). D must be a multiple of 8 up to 128.
-#define REFACE_BWD_DISPATCH(LAUNCH, ...)                                      \
+#define REFACE_BWD_CHECK()                                                    \
+  if (d <= 0 || d > 128 || d % 8 != 0) return (int)cudaErrorInvalidValue;     \
+  cudaStream_t s = static_cast<cudaStream_t>(stream);                         \
+  using namespace reface
+
+#define REFACE_BWD_FP32(LAUNCH, ...)                                          \
   do {                                                                        \
-    if (d <= 0 || d > 128 || d % 8 != 0) return (int)cudaErrorInvalidValue;   \
-    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
-    using namespace reface;                                                   \
-    if (dtype == 1) {                                                         \
-      if (d <= 48) return LAUNCH<__nv_bfloat16, 6>(__VA_ARGS__, s);           \
-      if (d <= 96) return LAUNCH<__nv_bfloat16, 12>(__VA_ARGS__, s);          \
-      return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__, s);                       \
-    }                                                                         \
-    if (dtype == 0) {                                                         \
-      if (d <= 48) return LAUNCH<float, 6>(__VA_ARGS__, s);                   \
-      if (d <= 96) return LAUNCH<float, 12>(__VA_ARGS__, s);                  \
-      return LAUNCH<float, 16>(__VA_ARGS__, s);                               \
-    }                                                                         \
-    return (int)cudaErrorInvalidValue;                                        \
+    if (d <= 48) return LAUNCH<float, 6>(__VA_ARGS__, s);                     \
+    if (d <= 96) return LAUNCH<float, 12>(__VA_ARGS__, s);                    \
+    return LAUNCH<float, 16>(__VA_ARGS__, s);                                 \
   } while (0)
 
 extern "C" int reface_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -297,7 +298,11 @@ extern "C" int reface_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* di, void* dk, void* dv, int bh,
                                     int n, int m, int d, float scale, int dtype,
                                     void* stream) {
-  REFACE_BWD_DISPATCH(launch_dkv, q, k, v, lse, dout, di, dk, dv, bh, n, m, d, scale);
+  REFACE_BWD_CHECK();
+  if (dtype == 1)
+    return sm90::flash_bwd_dkv_bf16(q, k, v, lse, dout, di, dk, dv, bh, n, m, d, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  REFACE_BWD_FP32(launch_dkv, q, k, v, lse, dout, di, dk, dv, bh, n, m, d, scale);
 }
 
 extern "C" int reface_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -305,5 +310,12 @@ extern "C" int reface_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* di, void* dq, int bh, int n,
                                    int m, int d, float scale, int dtype,
                                    void* stream) {
-  REFACE_BWD_DISPATCH(launch_dq, q, k, v, lse, dout, di, dq, bh, n, m, d, scale);
+  REFACE_BWD_CHECK();
+  if (dtype == 1) {
+    if (d <= 48) return launch_dq<__nv_bfloat16, 6>(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
+    if (d <= 96) return launch_dq<__nv_bfloat16, 12>(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
+    return launch_dq<__nv_bfloat16, 16>(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  REFACE_BWD_FP32(launch_dq, q, k, v, lse, dout, di, dq, bh, n, m, d, scale);
 }

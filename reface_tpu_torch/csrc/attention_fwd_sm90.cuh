@@ -1,20 +1,45 @@
 // Hopper attention forward for bf16: K2 (attention_wide.cu's
-// reface_wide_attention) and K2 with residuals (reface_flash_attention_fwd,
-// which also writes one log-sum-exp per query row). fp32 calls do not come
-// here: they run the scalar attn_fwd_kernel of attention_common.cuh, which
-// the card's fp32 checks hold tightly to the plain version. The dispatch is
-// by dtype in attention_wide.cu; a bf16 call never reaches the old kernel.
+// reface_wide_attention), K2 with residuals (reface_flash_attention_fwd,
+// which also writes one log-sum-exp per query row) and, at D <= 128, K1
+// (attention_smalld.cu's reface_smalld_attention, with K1's own rules below).
+// fp32 calls do not come here: they run the scalar attn_fwd_kernel of
+// attention_common.cuh, which the card's fp32 checks hold tightly to the
+// plain version. The dispatch is by dtype (and for K1 by D) in the two .cu
+// files; a bf16 call at D <= 128 never reaches the old kernel.
 //
 // Replaces: jax/experimental/pallas/ops/tpu/flash_attention.py:758
 // (_flash_attention_impl, the library kernel that reface_tpu/ops/attention.py
-// :71 calls), with and without save_residuals.
+// :71 calls), with and without save_residuals; and for K1
+// reface_tpu/ops/attention_smalld.py:118 and :141 (_kernel, _kernel_tn: one
+// function in two TPU operand layouts, which have no Hopper counterpart).
 //
-// Numerics, the library's (flash_attention.py:447-471) in both entry points:
-// fp32 scores, scaled into log2 units; a running row max m; p = exp2(s - m)
-// in fp32 goes into the row sum l; p is rounded to bf16 only as the A operand
-// of the PV product, which accumulates in fp32; the accumulator is rescaled
-// by exp2(m_old - m_new) at each new max; o = acc / l, stored in bf16;
+// Numerics of K2 and K2r, the library's (flash_attention.py:447-471): fp32
+// scores, scaled into log2 units; a running row max m; p = exp2(s - m) in fp32
+// goes into the row sum l; p is rounded to bf16 only as the A operand of the
+// PV product, which accumulates in fp32; the accumulator is rescaled by
+// exp2(m_old - m_new) at each new max; o = acc / l, stored in bf16;
 // lse = (m + log2 l) ln 2.
+//
+// Numerics of K1, the TPU smalld kernel's, by the template option kSmalld,
+// which switches two rules:
+//   a fixed shift: one shift per row and no running max: the max of the
+//     row's scaled scores over keys 0 .. min(256, M) - 1 (_shift,
+//     attention_smalld.py:32-36), or none when the caller asks for `fast`;
+//     p = exp2(s * scale * log2e - shift) in fp32, never rescaled. p may
+//     pass 1 beyond the first 256 keys: fp32 and bf16 have ~2^127 of
+//     headroom. The shift comes from a prologue that runs QK^T over the
+//     first 256 keys (two key tiles) for their max alone, and the main loop
+//     computes those scores again: 6% more QK^T at N = 4096, 25% at 1024.
+//     Keeping tile 0's 64 score registers until tile 1's max is known would
+//     need 64 more registers a thread at D = 80 (acc 64 + two score tiles
+//     128), past the 168 that ptxas grants.
+//   a rounded sum: the row sum takes p *rounded to bf16*, in fp32, as the TPU
+//     kernel's ones-column of V does (attention_smalld.py:55-63): the packed
+//     bf16 pairs of the PV operand are widened back (a shift and a mask) and
+//     added in registers. A spare ones-column in V's padded width would do
+//     the same in the wgmma, but needs a write into every V stage after its
+//     TMA lands and has no room at D = 64 or 128.
+// K1 writes no lse.
 //
 // Bound on the card: at D = 512 the tensor cores (4 BH N M D operations, 69
 // GFLOP at (2,4096,4096,512): 0.07 ms); at D = 40 the exponential unit (one
@@ -91,6 +116,7 @@ namespace sm90 {
 constexpr int kThreads = 384;  // two consumer warpgroups, then the producer warpgroup
 constexpr int kProducer = 256; // the producer's first thread, which issues every load
 constexpr float kLn2f = 0.6931471805599453f;
+constexpr float kLog2ef = 1.4426950408889634f;
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -145,8 +171,11 @@ __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.alig
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Returns once at most N of this warpgroup's committed wgmma groups are
+// pending (they complete in order).
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across
@@ -155,6 +184,19 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Keeps the writes of a wgmma's A fragments before the wgmma.fence that
+// follows (an asm statement of its own, which the compiler could otherwise
+// move them past; ptxas then injects a fence of its own and serialises the
+// wgmmas, its notes C7519 and C7520).
+template <int N, int M>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -213,20 +255,24 @@ struct Cfg {
 
 // ------------------------------------------------------------ the kernel
 
+// K1's shift spans the scores of the first kShiftKeys keys of each row.
+constexpr int kShiftKeys = 256;
+
 // One consumer warpgroup's state and steps. The arrays live in registers:
 // every member function is inlined and indexes them only with constants.
 // Shared memory is addressed by 32-bit shared-window offsets from `base`.
-template <int kDp, int kKS, int kBN, bool kSplit>
+template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld>
 struct Consumer {
   using C = Cfg<kDp, kKS, kBN, kSplit>;
   static constexpr int kS = kBN / 2;     // score registers a thread
   static constexpr int kO = C::kNO / 2;  // accumulator registers a thread
+  static_assert(!kSmalld || (!kSplit && kShiftKeys % kBN == 0), "K1 runs unsplit tiles");
 
   uint32_t base, q_addr, kv_off;  // kv_off: this warpgroup's first depth box in a K/V tile
   int wg, t, tq, m;  // t: the thread's index in its warpgroup
   float scale_log2;
   float acc[kO];
-  float m_run[2], l_run[2];  // l_run: this thread's share of the row sum
+  float m_run[2], l_run[2];  // the running max (K1: the fixed shift); this thread's share of the row sum
   float sc[kS];              // the scores of one tile, then its probabilities
   uint32_t pa[kBN / 16][4];  // P in bf16, the A operand of PV
 
@@ -259,8 +305,50 @@ struct Consumer {
     wg_commit();
   }
 
-  // Tile j's scores (landed) -> the new max and sum, the accumulator
-  // rescaled, and P rounded to bf16 in pa.
+  // keys at or past M drop out of the last, ragged tile. This thread holds
+  // rows g (e = 0, 1) and g + 8 (e = 2, 3) of its warp's 16, columns
+  // 8i + 2 tq + (e & 1) of the tile.
+  __device__ __forceinline__ void mask_tail(int j) {
+    const int key0 = j * kBN;
+    if (key0 + kBN > m) {
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+        if (key0 + 8 * (i / 4) + 2 * tq + (i & 1) >= m) sc[i] = -INFINITY;
+    }
+  }
+
+  // K1: m_run = each row's shift, the max of its scaled scores over
+  // the first min(kShiftKeys, M) keys, or 0 when `fast`. QK^T runs over those
+  // key tiles for their max alone; their stages stay loaded for the main loop.
+  __device__ __forceinline__ void fixed_shift(int fast) {
+    m_run[0] = m_run[1] = 0.f;
+    if (fast) return;
+    const int tiles = min(kShiftKeys / kBN, (m + kBN - 1) / kBN);
+    float mx[2] = {-INFINITY, -INFINITY};
+    for (int j = 0; j < tiles; ++j) {
+      issue_scores(j);
+      wg_wait<0>();
+      fence_regs(sc);
+      mask_tail(j);
+#pragma unroll
+      for (int i = 0; i < kS / 4; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          mx[r] = fmaxf(mx[r], fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // max(s) * c is max(s * c): rounding is monotone, and c > 0
+      m_run[r] = mx[r] * scale_log2;
+    }
+  }
+
+  // Tile j's scores (landed) -> P rounded to bf16 in pa, and the row sum.
+  // The library's rule: a new running max, the accumulator rescaled, the
+  // fp32 p summed. K1's: the fixed shift, p summed as rounded.
   __device__ __forceinline__ void softmax(int j) {
     if constexpr (kSplit) {  // add the other warpgroup's half of the depth
       const uint32_t xb = base + C::kXOff + (j & 1) * 2 * 64 * kBN * 4;
@@ -277,40 +365,36 @@ struct Consumer {
         sc[i] += x;
       }
     }
-    // this thread holds rows g (e = 0, 1) and g + 8 (e = 2, 3) of its
-    // warp's 16, columns 8i + 2 tq + (e & 1) of the tile
-    const int key0 = j * kBN;
-    if (key0 + kBN > m) {  // the last, ragged tile: keys at or past M drop out
-#pragma unroll
-      for (int i = 0; i < kS; ++i)
-        if (key0 + 8 * (i / 4) + 2 * tq + (i & 1) >= m) sc[i] = -INFINITY;
-    }
+    mask_tail(j);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
+      float shift = m_run[r], alpha = 1.f;
+      if constexpr (!kSmalld) {  // the running max, and the rescale it needs
+        float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < kS / 4; ++i) mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx * scale_log2);  // finite: key0 < m
-      const float alpha = ex2(m_run[r] - m_new);
+        for (int i = 0; i < kS / 4; ++i) mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        shift = fmaxf(m_run[r], mx * scale_log2);  // finite: key0 < m
+        alpha = ex2(m_run[r] - shift);
+        m_run[r] = shift;
+#pragma unroll
+        for (int i = 0; i < kO / 4; ++i) {
+          acc[4 * i + 2 * r] *= alpha;
+          acc[4 * i + 2 * r + 1] *= alpha;
+        }
+      }
       float sum = 0.f;
 #pragma unroll
       for (int i = 0; i < kS / 4; ++i) {
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float p = ex2(fmaf(sc[4 * i + e], scale_log2, -m_new));  // 0 at -inf
+          const float p = ex2(fmaf(sc[4 * i + e], scale_log2, -shift));  // 0 at -inf
           sc[4 * i + e] = p;
           sum += p;
         }
       }
-      l_run[r] = l_run[r] * alpha + sum;
-      m_run[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < kO / 4; ++i) {
-        acc[4 * i + 2 * r] *= alpha;
-        acc[4 * i + 2 * r + 1] *= alpha;
-      }
+      l_run[r] = l_run[r] * alpha + (kSmalld ? 0.f : sum);  // alpha = 1 under a fixed shift
     }
     // k-step kk of PV covers score columns 16 kk .. 16 kk + 15
 #pragma unroll
@@ -319,20 +403,29 @@ struct Consumer {
       for (int x = 0; x < 4; ++x)
         pa[kk][x] = pack_bf16x2(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
     }
+    if constexpr (kSmalld) {  // pa[kk][x] holds row x & 1; bf16 widens by a shift
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          l_run[x & 1] += __uint_as_float(pa[kk][x] << 16) +
+                          __uint_as_float(pa[kk][x] & 0xffff0000u);
+      }
+    }
   }
 };
 
-template <int kDp, int kKS, int kBN, bool kSplit>
+template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld>
 __device__ __forceinline__ void consume(uint32_t base, __nv_bfloat16* __restrict__ o,
                                         float* __restrict__ lse, int n, int m, int d,
-                                        float scale_log2) {
+                                        float scale_log2, int fast) {
   using C = Cfg<kDp, kKS, kBN, kSplit>;
   constexpr int kO = C::kNO / 2;
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
   const int ntiles = (m + kBN - 1) / kBN;
 
-  Consumer<kDp, kKS, kBN, kSplit> w;
+  Consumer<kDp, kKS, kBN, kSplit, kSmalld> w;
   w.base = base;
   // where this warpgroup's Q rows and depth, and its K and V depth, begin
   const int box0 = kSplit ? wg * (C::kBoxes / 2) : 0;
@@ -359,20 +452,20 @@ __device__ __forceinline__ void consume(uint32_t base, __nv_bfloat16* __restrict
     if constexpr (!kSplit)
       if (!(last && wg == 1)) asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
   };
-  if (wg == 1) turn_pass(false);  // warpgroup 0 goes first
-
   mbar_wait(base + C::kQFull, 0);
+  if constexpr (kSmalld) w.fixed_shift(fast);
+  if (wg == 1) turn_pass(false);  // warpgroup 0 goes first
   for (int j = 0; j < ntiles; ++j) {
     turn_wait();
     w.issue_scores(j);
     turn_pass(false);
-    wg_wait_all();
+    wg_wait<0>();
     fence_regs(w.sc);
     w.softmax(j);
     turn_wait();
     w.issue_pv(j);
     turn_pass(j + 1 == ntiles);
-    wg_wait_all();
+    wg_wait<0>();
     fence_regs(w.acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(base + C::kEmpty + 8 * (j % C::kStages));  // stage j is free
@@ -403,11 +496,11 @@ __device__ __forceinline__ void consume(uint32_t base, __nv_bfloat16* __restrict
   }
 }
 
-template <int kDp, int kKS, int kBN, bool kSplit>
+template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, int n, int m, int d, float scale_log2) {
+              float* __restrict__ lse, int n, int m, int d, float scale_log2, int fast) {
   using C = Cfg<kDp, kKS, kBN, kSplit>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms are 1024-aligned
@@ -446,7 +539,7 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     }
   } else {  // consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<kDp, kKS, kBN, kSplit>(base, o, lse, n, m, d, scale_log2);
+    consume<kDp, kKS, kBN, kSplit, kSmalld>(base, o, lse, n, m, d, scale_log2, fast);
   }
 }
 
@@ -492,41 +585,41 @@ inline int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int kDp, int kKS, int kBN, bool kSplit>
+template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld = false>
 inline int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int n,
-                  int m, int d, float scale_log2, cudaStream_t stream) {
+                  int m, int d, float scale_log2, cudaStream_t stream, int fast = 0) {
   using C = Cfg<kDp, kKS, kBN, kSplit>;
   CUtensorMap tq, tk, tv;
   int rc = make_map(&tq, q, d, n, bh, C::kRowsQ);
   if (rc == 0) rc = make_map(&tk, k, d, m, bh, kBN);
   if (rc == 0) rc = make_map(&tv, v, d, m, bh, kBN);
   if (rc != 0) return rc;
-  auto kern = attn_fwd_sm90<kDp, kKS, kBN, kSplit>;
+  auto kern = attn_fwd_sm90<kDp, kKS, kBN, kSplit, kSmalld>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + C::kRowsQ - 1) / C::kRowsQ, bh);
   kern<<<grid, kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n,
-                                             m, d, scale_log2);
+                                             m, d, scale_log2, fast);
   return (int)cudaGetLastError();
 }
 
-// The bf16 forward at any D the entry points take: multiples of 8 up to 128,
-// and 256, 384, 512. lse may be nullptr (K2 without residuals).
-inline int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                              int bh, int n, int m, int d, float scale_log2, cudaStream_t s) {
-  switch (d <= 128 ? (d + 15) / 16 : d) {
-    case 1: return launch<64, 1, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 2: return launch<64, 2, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 3: return launch<64, 3, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 4: return launch<64, 4, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 5: return launch<128, 5, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 6: return launch<128, 6, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 7: return launch<128, 7, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 8: return launch<128, 8, 128, false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 256: return launch<256, 8, 32, true>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 384: return launch<384, 12, 32, true>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
-    case 512: return launch<512, 16, 32, true>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
+// The bf16 forward at D a multiple of 8 up to 128, one instance per k-step
+// count of QK^T; kSmalld: K1's rules (lse must be nullptr). A template, so
+// that a source builds only the instances it calls.
+template <bool kSmalld>
+inline int attention_fwd_bf16_d128(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int bh, int n, int m, int d, float scale_log2,
+                                   cudaStream_t s, int fast = 0) {
+  switch ((d + 15) / 16) {
+    case 1: return launch<64, 1, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 2: return launch<64, 2, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 3: return launch<64, 3, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 4: return launch<64, 4, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 5: return launch<128, 5, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 6: return launch<128, 6, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 7: return launch<128, 7, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
+    case 8: return launch<128, 8, 128, false, kSmalld>(q, k, v, o, lse, bh, n, m, d, scale_log2, s, fast);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,20 +2,30 @@
 // tokens, d=80 over 1024 tokens).
 //
 // Replaces: reface_tpu/ops/attention_smalld.py:self_attention_smalld, both
-// its "nn" kernel (_kernel) and its "tn" kernel (_kernel_tn); the nn/tn split
-// was a TPU operand-layout device and has no Hopper counterpart.
+// its "nn" kernel (_kernel, :118) and its "tn" kernel (_kernel_tn, :141); the
+// nn/tn split was a TPU operand-layout device and has no Hopper counterpart.
+// Their function, which bf16 keeps here: one fixed shift per row, the max of
+// the scaled scores over the first 256 keys (none with `fast`), p rounded to
+// bf16, and the row sum taken over the rounded p (the TPU kernel's
+// ones-column), fp32 accumulation.
 //
-// Bound on the card: operations. At (BH, N, D) = (16, 4096, 40) the two
-// products are 4*N^2*D*BH = 43 GFLOP against 4*N*D*BH*2 bytes = 21 MB moved,
-// some 2,000 FLOP per byte, far above the H100's ~295 bf16 FLOP/byte ridge.
+// Bound on the card: the exponential unit at D = 40 (one exp2 a score,
+// BH N^2 = 268 M at (16, 4096, 40): 0.069 ms), the tensor cores at the
+// padded widths close behind; far above the bytes (4 N D BH x 2 = 21 MB).
 //
-// Design: the TPU kernel keeps a whole head's K and V resident (4096 x 40
-// bf16 = 320 KB each), more than a block's 227 KB of shared memory, so this
-// kernel streams 64-key tiles with an online max (attention_common.cuh).
-// Products run on the tensor cores through mma.sync m16n8k16; D=40 is padded
-// to 48 inside the kernel for the QK^T depth, and the PV product covers only
-// the real D columns. One launch covers every (batch*head).
+// Dispatch, by dtype and by shape, never as a fallback:
+//   bf16, D <= 128 -> attention_fwd_sm90.cuh (wgmma, TMA, a producer
+//     warpgroup, the two consumer warpgroups in ping-pong) with K1's rules
+//     (kSmalld: the fixed shift and the rounded row sum);
+//   bf16, 128 < D <= 256 -> attn_fwd_kernel of attention_common.cuh
+//     (mma.sync, an online max: the shift differs from the TPU kernel's,
+//     which changes where p is rounded). No UNet level reaches it: the
+//     d = 160 level has 256 tokens, which ops/attention.py sends to einsum;
+//   fp32 -> attn_fwd_kernel's scalar path, where rounding p is a no-op and
+//     the shift is exact either way; the card holds it to the plain version
+//     at 2e-5.
 #include "attention_common.cuh"
+#include "attention_fwd_sm90.cuh"
 
 extern "C" int reface_smalld_attention(const void* q, const void* k,
                                        const void* v, void* o, int bh, int n,
@@ -24,8 +34,16 @@ extern "C" int reface_smalld_attention(const void* q, const void* k,
   if (d <= 0 || d > 256 || d % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using namespace reface;
-  if (d <= 48) return launch_attn_dtype<6>(dtype, q, k, v, o, bh, n, n, d, d, scale_log2, fast, s);
-  if (d <= 96) return launch_attn_dtype<12>(dtype, q, k, v, o, bh, n, n, d, d, scale_log2, fast, s);
-  if (d <= 128) return launch_attn_dtype<16>(dtype, q, k, v, o, bh, n, n, d, d, scale_log2, fast, s);
-  return launch_attn_dtype<32>(dtype, q, k, v, o, bh, n, n, d, d, scale_log2, fast, s);
+  if (dtype == 1) {
+    if (d <= 128)
+      return sm90::attention_fwd_bf16_d128<true>(q, k, v, o, nullptr, bh, n, n, d, scale_log2, s,
+                                                 fast);
+    return launch_attn<__nv_bfloat16, 32, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2,
+                                                 fast, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 48) return launch_attn<float, 6, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2, fast, s);
+  if (d <= 96) return launch_attn<float, 12, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2, fast, s);
+  if (d <= 128) return launch_attn<float, 16, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2, fast, s);
+  return launch_attn<float, 32, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2, fast, s);
 }

@@ -30,6 +30,25 @@ bool head_dim_ok(int d) { return d > 0 && d % 8 == 0 && (d <= 128 || (d % 128 ==
 
 }  // namespace
 
+namespace reface {
+namespace sm90 {
+
+// The bf16 forward at any D the entry points take: multiples of 8 up to 128,
+// and 256, 384, 512. lse may be nullptr (K2 without residuals).
+inline int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int bh, int n, int m, int d, float scale_log2, cudaStream_t s) {
+  if (d <= 128) return attention_fwd_bf16_d128<false>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
+  switch (d) {
+    case 256: return launch<256, 8, 32, true>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
+    case 384: return launch<384, 12, 32, true>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
+    case 512: return launch<512, 16, 32, true>(q, k, v, o, lse, bh, n, m, d, scale_log2, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace sm90
+}  // namespace reface
+
 extern "C" int reface_wide_attention(const void* q, const void* k,
                                      const void* v, void* o, int bh, int n,
                                      int m, int d, float scale_log2, int dtype,

@@ -1,13 +1,20 @@
 """Self-attention for the UNet's small head dims (kernel K1).
 
 Port of reface_tpu/ops/attention_smalld.py. On a CUDA tensor the wrapper
-launches the hand-written Hopper kernel in csrc/attention_smalld.cu, which
-streams K/V tiles with an online max (a whole head's K and V do not fit a
-block's shared memory the way they fit the TPU's VMEM). On a CPU tensor it
-computes the plain version, `einsum_attention`.
+launches the hand-written kernel of csrc/attention_smalld.cu: in bf16 at
+D <= 128 the Hopper forward of csrc/attention_fwd_sm90.cuh with K1's rules,
+which streams K/V tiles (a whole head's K and V do not fit a block's shared
+memory the way they fit the TPU's VMEM). On a CPU tensor it computes
+`einsum_attention`, which is what the JAX package runs off the TPU
+(reface_tpu/ops/attention.py:96-101).
 
-Numerics (both): fp32 scores, probabilities rounded to the input dtype
-before the PV product, fp32 accumulation, output in q's dtype.
+The TPU kernel's function, which bf16 K1 computes and `smalld_attention_plain`
+writes out: fp32 scores scaled into log2 units; one fixed shift per row,
+the max over its first 256 keys (none with `fast`); p = exp2(s - shift)
+rounded to the input dtype; the row sum over those rounded p (the kernel's
+ones-column) and the PV product, both accumulated in fp32; o = PV / sum in
+q's dtype. einsum_attention rounds normalised fp32 weights instead: the two
+agree to the rounding of p, not bit for bit.
 """
 
 from __future__ import annotations
@@ -18,9 +25,11 @@ import torch
 
 from reface_tpu_torch.ops import kernels
 
-__all__ = ["einsum_attention", "self_attention_smalld", "check_operands"]
+__all__ = ["einsum_attention", "smalld_attention_plain", "self_attention_smalld",
+           "check_operands"]
 
 _LOG2E = math.log2(math.e)  # the kernels take the scale in log2 units
+_SHIFT_KEYS = 256  # K1's row shift spans the scores of the first 256 keys
 # the differentiable attention, named when a kernel without a backward is
 # asked for a gradient
 _GRAD_ROUTE = ('differentiate through attn_impl="flash" (ops/attention.py '
@@ -36,6 +45,19 @@ def einsum_attention(q, k, v, scale: float):
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(w, v)
+
+
+def smalld_attention_plain(q, k, v, scale: float, fast: bool = False):
+    """K1's plain version, of the TPU smalld kernel's own function
+    (reface_tpu/ops/attention_smalld.py:_kernel and _kernel_tn): the fixed
+    first-256-key shift (none when `fast`), p rounded to v's dtype in both
+    the row sum and the PV product, fp32 accumulation. (..., N, D) x
+    (..., M, D) -> (..., N, D) in q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * _LOG2E)
+    if not fast:
+        s = s - s[..., :_SHIFT_KEYS].amax(-1, keepdim=True)
+    p = torch.exp2(s).to(v.dtype).float()
+    return (torch.matmul(p, v.float()) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
 def check_operands(q, k, v, what: str) -> None:
@@ -59,11 +81,11 @@ def self_attention_smalld(q, k, v, scale: float | None = None,
                           fast: bool = False):
     """(BH, N, D) self-attention. Returns (BH, N, D) in q.dtype.
 
-    CUDA: the K1 kernel; D must be a multiple of 8 and at most 256, N == M.
-    fast=True drops the softmax shift (serving mode). The kernel has no
-    backward: on a CUDA tensor that requires grad it raises. CPU: the plain
-    version (which is exact whatever `fast` says, as the JAX package's
-    off-TPU path is).
+    CUDA: the K1 kernel (`smalld_attention_plain`'s function in bf16 at
+    D <= 128); D must be a multiple of 8 and at most 256, N == M. fast=True
+    drops the softmax shift (serving mode). The kernel has no backward: on a
+    CUDA tensor that requires grad it raises. CPU: `einsum_attention`, the
+    JAX package's off-TPU route (exact whatever `fast` says).
     """
     d = q.shape[-1]
     scale = d**-0.5 if scale is None else scale

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("attention_smalld", "attention_wide", "attention_flash_bwd",
            "attention_flash_bwd_wide", "groupnorm")
 _HEADERS = ("common.cuh", "attention_common.cuh", "attention_flash_bwd.cuh",
-            "attention_fwd_sm90.cuh", "wgmma_sm90.cuh")
+            "attention_fwd_sm90.cuh", "attention_bwd_sm90.cuh", "wgmma_sm90.cuh")
 # the `dtype` argument of every C entry point; other dtypes are refused
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,7 +7,10 @@ every leaf is drawn from a numpy seed by its role. No leaf is zero: the
 JAX init zero-initialises out_conv / proj_out, which would make an output
 parity check vacuous. The tree is carried into the port through
 reface_tpu_torch.ckpt.from_jax. Inputs come from a numpy seed and are fed
-to both packages; comparisons are fp32 on the CPU.
+to both packages; comparisons are fp32 on the CPU. j_flash_residuals runs
+the library flash forward with its saved row statistics, for the flash
+attention tests of test_torch_port_train.py and
+test_torch_port_attention_smalld.py.
 
 The last part holds what the two files of full-loss tests share
 (test_torch_port_losses.py and test_torch_port_losses_head.py: two files, so
@@ -22,6 +25,24 @@ import pytest
 import torch
 
 ATOL = 2e-4  # fp32 both sides; conv/gemm summation-order differences only
+
+
+def j_flash_residuals(q, k, v, scale):
+    """The library forward with save_residuals=True, padded and blocked as
+    reface_tpu/ops/attention.py:_flash_attention calls it: (o, lse)."""
+    from jax.experimental.pallas.ops.tpu import flash_attention as FA
+
+    n, m, d = q.shape[2], k.shape[2], q.shape[3]
+    pad = ((0, 0), (0, 0), (0, 0), (0, 128 - d))
+    q, k, v = (jnp.pad(t, pad) for t in (q, k, v))
+    bq, bkv = min(512, n), min(1024, m)
+    sizes = FA.BlockSizes(
+        block_q=bq, block_k_major=bkv, block_k=bkv, block_b=1,
+        block_q_major_dkv=bq, block_k_major_dkv=bkv, block_k_dkv=bkv,
+        block_q_dkv=bq, block_k_major_dq=bkv, block_k_dq=bkv, block_q_dq=bq)
+    o, l, mx = FA._flash_attention(q, k, v, None, None, True, False, scale,
+                                   sizes, False)
+    return o[..., :d], mx + jnp.log(l)
 
 
 def random_tree(shapes, seed: int = 0):

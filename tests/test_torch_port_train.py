@@ -23,6 +23,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from test_torch_port_helpers import j_flash_residuals as _j_flash_residuals
 from test_torch_port_helpers import jax_draws as _jax_draws
 from test_torch_port_helpers import random_tree
 from test_torch_port_helpers import train_batch as _batch
@@ -55,24 +56,6 @@ def _rel(a, b) -> float:
 
 
 # ------------------------------------------------------------ flash attention
-
-def _j_flash_residuals(q, k, v, scale):
-    """The library forward with save_residuals=True, padded and blocked as
-    reface_tpu/ops/attention.py:_flash_attention calls it: (o, lse)."""
-    from jax.experimental.pallas.ops.tpu import flash_attention as FA
-
-    n, m, d = q.shape[2], k.shape[2], q.shape[3]
-    pad = ((0, 0), (0, 0), (0, 0), (0, 128 - d))
-    q, k, v = (jnp.pad(t, pad) for t in (q, k, v))
-    bq, bkv = min(512, n), min(1024, m)
-    sizes = FA.BlockSizes(
-        block_q=bq, block_k_major=bkv, block_k=bkv, block_b=1,
-        block_q_major_dkv=bq, block_k_major_dkv=bkv, block_k_dkv=bkv,
-        block_q_dkv=bq, block_k_major_dq=bkv, block_k_dq=bkv, block_q_dq=bq)
-    o, l, mx = FA._flash_attention(q, k, v, None, None, True, False, scale,
-                                   sizes, False)
-    return o[..., :d], mx + jnp.log(l)
-
 
 @pytest.mark.parametrize("d", [40, 80])
 def test_flash_plain_matches_library(interpret_pallas, d):
