@@ -14,13 +14,16 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
 
   1. device: the card's name and power limit (nvidia-smi), the build time of
      each source, and the SASS of the Hopper kernels (cuobjdump: every bf16
-     instance of the attention forward, K1's included, and of K4 at D <= 128
-     must hold wgmma and TMA instructions, HGMMA and UTMALDG, and no bf16
-     mma.sync instance of the old kernels they replace may be left to reach);
+     instance of the attention forward, K1's included, of K4 and K5 at
+     D <= 128 and of K5's two d = 512 kernels must hold wgmma and TMA
+     instructions, HGMMA and UTMALDG, and no bf16 mma.sync instance of the
+     old kernels they replace may be left to reach, but K1's at
+     128 < D <= 256, which must have K1's rules, and K4's at d = 512);
   2. kernels: K1 (UNet self-attention), K2 (VAE mid-block attention) and K3
      (GroupNorm+SiLU) against their plain PyTorch versions at every shape the
-     survey found, K1 also at ragged and tiny shapes and K2 at ragged shapes
-     and D = 40, 80, 256, in bf16 and fp32 (TF32 off); bf16 K1 also against
+     survey found, K1 also at ragged and tiny shapes and at d = 160 (the
+     mma.sync instance, timed beside sdpa) and K2 at ragged shapes and
+     D = 40, 80, 256, in bf16 and fp32 (TF32 off); bf16 K1 also against
      the TPU kernel's own function (smalld_attention_plain, both modes, one
      bf16 ulp), bf16 K2 against the library's function
      (flash_attention_fwd_plain, one bf16 ulp) and bit-equal to the residual
@@ -40,10 +43,12 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      (32,1024,80), and ragged ones at d = 40 and 80) and of the VAE decoder's
      mid-block ((1,4096,512), (4,4096,512), a ragged one, and a ragged
      d = 256 off the main path), bf16 and fp32: the forward with
-     residuals (K2's o and lse), K4 (dk, dv) and K5 (dq), each timed beside
-     its bound, its plain version and scaled_dot_product_attention (for K4
-     and K5 its backward alone, which computes dq, dk and dv together from a
-     kept forward, and beside it the forward and backward);
+     residuals (K2's o and lse), K4 (dk, dv) and K5 (dq; at d > 128 in bf16
+     also its dS workspace, against the plain dS rounded to bf16, zeros at
+     keys past M included), each timed beside its bound, its plain version
+     and scaled_dot_product_attention (for K4 and K5 its backward alone,
+     which computes dq, dk and dv together from a kept forward, and beside
+     it the forward and backward);
   7. the eps-MSE training path: make_train_step(SwapConfig(), ...) at batch 4
      and 512 px, 2 steps on seeded random weights; checks the loss, that
      every trainable parameter moved and every frozen one did not, the
@@ -145,6 +150,9 @@ TOL = {
 }
 REL_TOL_BF16 = 1e-2
 K1_ULPS = K2_ULPS = 1
+# bf16 K1 at 128 < D <= 256 (csrc/attention_smalld.cu's mma.sync instance):
+# off the 512 px main path, reached by a 1024 px input's 1024 tokens at d=160
+K1_WIDE_SHAPES = [(16, 1024, 1024, 160), (3, 600, 600, 160)]
 # Relative L2 distance of each bf16 tower from an fp32 copy with the same
 # weights (phase 4); random weights, full width. About twice what was seen:
 # UNet 1.42e-2, fused 1.36e-2, VAE encode 1.57e-2, decode 1.17e-2,
@@ -277,10 +285,12 @@ def ptxas_instances(report: str) -> dict:
 
 def short_name(mangled: str) -> str:
     """attn_fwd_sm90<64,3,128,0,1> for the mangled name of a Hopper kernel
-    instance (template arguments in order, bools as 0/1)."""
+    instance (template arguments in order, bools as 0/1); the bare name of a
+    kernel that is not a template."""
     m = re.search(r"([a-z_]+_sm90)I(.*?)EEv", mangled)
-    if m is None:
-        return mangled
+    if m is None:  # not a template
+        m = re.search(r"([a-z_]+_sm90)E", mangled)
+        return mangled if m is None else m.group(1)
     return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
 
 
@@ -294,34 +304,53 @@ def sass_functions(name: str) -> dict:
     return {f.splitlines()[0].strip(): f for f in sass.split("Function : ")[1:]}
 
 
+# check_sass(): the Hopper kernels each library must hold, and how many bf16
+# mma.sync instances of each old kernel it may still hold
+SASS_HOPPER = {
+    "attention_wide": ("attn_fwd_sm90",),
+    "attention_smalld": ("attn_fwd_sm90",),
+    "attention_flash_bwd": ("flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"),
+    "attention_flash_bwd_wide": ("flash_bwd_ds_sm90", "flash_bwd_dq_gemm_sm90"),
+}
+SASS_OLD_BF16 = {
+    "attention_wide": {"attn_fwd_kernel": 0},
+    "attention_smalld": {"attn_fwd_kernel": 1},  # K1 at 128 < D <= 256
+    "attention_flash_bwd": {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0},
+    "attention_flash_bwd_wide": {"flash_bwd_dq_wide_kernel": 0,
+                                 "flash_bwd_dkv_wide_kernel": 1},  # K4 at d = 512
+}
+
+
 def check_sass():
     """The Hopper kernels' instructions. Every bf16 instance of the attention
     forward (attn_fwd_sm90: K2 and K2r in attention_wide, K1 in
-    attention_smalld) and of K4 at D <= 128 (flash_bwd_dkv_sm90 in
-    attention_flash_bwd) runs wgmma (HGMMA) and TMA loads (UTMALDG); no bf16
-    instance of the old mma.sync kernels (HMMA) is left for them to reach:
-    none of attn_fwd_kernel in attention_wide, only the one for
-    128 < D <= 256 in attention_smalld, none of flash_bwd_dkv_kernel."""
-    want = {"attention_wide": ("attn_fwd_sm90", "attn_fwd_kernel", 0),
-            "attention_smalld": ("attn_fwd_sm90", "attn_fwd_kernel", 1),
-            "attention_flash_bwd": ("flash_bwd_dkv_sm90", "flash_bwd_dkv_kernel", 0)}
-    for lib, (new_name, old_name, old_allowed) in want.items():
+    attention_smalld), of K4 and K5 at D <= 128 (flash_bwd_dkv_sm90,
+    flash_bwd_dq_sm90 in attention_flash_bwd) and of K5's two d = 512
+    kernels (flash_bwd_ds_sm90, flash_bwd_dq_gemm_sm90 in
+    attention_flash_bwd_wide) runs wgmma (HGMMA) and TMA loads (UTMALDG);
+    no bf16 instance of the old mma.sync kernels (HMMA) is left for them to
+    reach, but K1's for 128 < D <= 256 in attention_smalld, which must have
+    K1's rules (kSmalld), and K4's at d = 512 (SASS_OLD_BF16)."""
+    for lib, hopper in SASS_HOPPER.items():
         funcs = sass_functions(lib)
-        new = {n: (f.count("HGMMA"), f.count("UTMALDG")) for n, f in funcs.items()
-               if new_name in n}
-        old_bf16 = [n for n, f in funcs.items() if old_name in n and "HMMA" in f]
-        print(f"  SASS of {lib}: {len(new)} {new_name} instances, HGMMA / UTMALDG counts "
-              f"{sorted(new.values())}; bf16 mma.sync instances of {old_name}: "
-              f"{len(old_bf16)} (allowed {old_allowed})", flush=True)
-        if not new or any(h == 0 or t == 0 for h, t in new.values()) \
-                or len(old_bf16) != old_allowed:
-            fail(f"{lib}: a bf16 Hopper kernel does not run wgmma and TMA, or the old "
-                 f"bf16 kernel {old_name} is still there to reach")
-        if lib == "attention_smalld":  # K1's own rules, and the D > 128 instance only
-            k1 = [n for n in new if "ELb0ELb1EE" in n]  # <..., kSplit false, kSmalld true>
-            if len(k1) != len(new) or any("Li32E" not in n for n in old_bf16):
-                fail("attention_smalld holds a forward without K1's rules, or an old "
-                     "bf16 instance below D = 128")
+        for new_name in hopper:
+            new = {n: (f.count("HGMMA"), f.count("UTMALDG")) for n, f in funcs.items()
+                   if new_name in n}
+            print(f"  SASS of {lib}: {len(new)} {new_name} instances, HGMMA / UTMALDG "
+                  f"counts {sorted(new.values())}", flush=True)
+            if not new or any(h == 0 or t == 0 for h, t in new.values()):
+                fail(f"{lib}: a bf16 Hopper kernel {new_name} does not run wgmma and TMA")
+            if lib == "attention_smalld" and any("ELb0ELb1EE" not in n for n in new):
+                fail("attention_smalld holds a Hopper forward without K1's rules")
+        for old_name, allowed in SASS_OLD_BF16[lib].items():
+            old_bf16 = [n for n, f in funcs.items() if old_name in n and "HMMA" in f]
+            print(f"  SASS of {lib}: bf16 mma.sync instances of {old_name}: "
+                  f"{len(old_bf16)} (allowed {allowed})", flush=True)
+            if len(old_bf16) != allowed:
+                fail(f"{lib}: the old bf16 kernel {old_name} is still there to reach")
+            # K1's mma.sync instance: <bf16, NT 32, kLse false, kSmalld true>, D > 128 only
+            if lib == "attention_smalld" and any("Li32ELb0ELb1EE" not in n for n in old_bf16):
+                fail("attention_smalld's mma.sync forward lacks K1's rules, or serves D <= 128")
 
 
 # ------------------------------------------------------------------ survey
@@ -496,6 +525,25 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
     return entry
 
 
+def time_k1_wide(gen):
+    """bf16 K1 at d = 160 (the mma.sync instance with K1's rules), off the
+    512 px main path: its time beside its bound, smalld_attention_plain and
+    sdpa at K1_WIDE_SHAPES[0]."""
+    bh, n, m, d = K1_WIDE_SHAPES[0]
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    scale = d**-0.5
+    ms = time_ms(lambda: self_attention_smalld(q, k, v, scale=scale))
+    plain = time_ms(lambda: smalld_attention_plain(q, k, v, scale))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale))
+    # the prologue's QK^T over the first 256 keys is not counted: it is the kernel's choice
+    b, by = bound_ms(2 * 4 * bh * n * d, 4.0 * bh * n * m * d, "bf16", float(bh * n * m))
+    print(f"  K1 bf16 (BH,N,M,D)={K1_WIDE_SHAPES[0]} (off the main path): kernel {ms:.4f} ms, "
+          f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, sdpa {lib:.4f} ms", flush=True)
+    return {"shape": K1_WIDE_SHAPES[0], "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": b, "bound_by": by}
+
+
 def check_groupnorm(shapes, gen):
     """K3 against group_norm_silu_plain at each (B,C,H,W) of the fused UNet
     forward (eps 1e-5, SiLU), plus eps 1e-6 without SiLU; bf16 times."""
@@ -657,7 +705,8 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
                 "K2/K2r attn_fwd_sm90" if "attn_fwd_sm90" in name else
                 "K1 attn_fwd_kernel" if "attn_fwd_kernel" in name else
                 "K4 d=512 flash_bwd_dkv_wide" if "flash_bwd_dkv_wide" in name else
-                "K5 d=512 flash_bwd_dq_wide" if "flash_bwd_dq_wide" in name else
+                "K5 d=512" if any(w in name for w in ("flash_bwd_dq_wide", "flash_bwd_ds_sm90",
+                                                      "flash_bwd_dq_gemm_sm90")) else
                 "K4 flash_bwd_dkv" if "flash_bwd_dkv" in name else
                 "K5 flash_bwd_dq" if "flash_bwd_dq" in name else
                 "K3 gn_" if "gn_partial" in name or "gn_apply" in name else
@@ -770,6 +819,24 @@ def tiny_reference():
 
 # ------------------------------------------------------------------ phase 6
 
+def check_ds_workspace(ws, q, k, v, lse, do, di, scale):
+    """bf16 K5's dS workspace at d > 128 against the plain dS rounded to
+    bf16 (`_probs_and_ds`, the value the library rounds for its dQ product):
+    within one bf16 ulp of the largest |dS| at keys below M, and exactly 0
+    at keys in [M, ds_pitch(M))."""
+    m = k.shape[1]
+    ref = PA._probs_and_ds(q, k, v, lse, do, di, scale)[1].to(torch.bfloat16)
+    err = (ws[..., :m].float() - ref.float()).abs().max().item()
+    lim = ulp_bf16(ref)
+    pad = ws[..., m:]
+    zeros = bool((pad == 0).all())
+    print(f"    flash_bwd_dq's dS workspace {tuple(ws.shape)} against the plain dS in "
+          f"bf16: max_abs_err {err:.3e} (tol {lim:.3e}, one bf16 ulp of max |dS|); the "
+          f"{pad.shape[-1]} keys past M hold 0: {zeros}", flush=True)
+    if not (err <= lim and zeros):
+        fail("bf16 K5's dS workspace is not the plain dS rounded to bf16")
+
+
 def check_train_kernels(gen, shapes):
     """The residual forward (o, lse), K4 (dk, dv) and K5 (dq) against their
     plain versions at `shapes`, bf16 and fp32 (the backward kernels and
@@ -779,7 +846,9 @@ def check_train_kernels(gen, shapes):
     At each bf16 shape it also reads three faults the limits must catch:
     the plain forward's o with its last key tile dropped (the bf16
     forward's kBN keys), the plain dV with its last 64-key tile dropped,
-    and the plain dQ without the last 64 keys' contribution."""
+    and the plain dQ without the last 64 keys' contribution. At d > 128 in
+    bf16 K5 writes its dS workspace into a tensor filled with NaN, which
+    check_ds_workspace then holds to the plain dS."""
     worst = {k: {"fp32": 0.0, "bf16": 0.0, "rel": 0.0} for k in ("K2r", "K4", "K5")}
     worst_lse = 0.0
 
@@ -812,8 +881,14 @@ def check_train_kernels(gen, shapes):
             del o, lse
             di = PA.row_dot(o_ref, do)
             dk, dv = PA.flash_bwd_dkv(q, k, v, lse_ref, do, di, scale)
-            dq = PA.flash_bwd_dq(q, k, v, lse_ref, do, di, scale)
+            ws = None
+            if kind == "bf16" and d > 128:  # NaN shows any element left unwritten
+                ws = torch.full((bh, n, PA.ds_pitch(m)), math.nan, dtype=dt, device="cuda")
+            dq = PA.flash_bwd_dq(q, k, v, lse_ref, do, di, scale, workspace=ws)
             torch.cuda.synchronize()
+            if ws is not None:
+                check_ds_workspace(ws, q, k, v, lse_ref, do, di, scale)
+                del ws
             dk_ref, dv_ref = PA.flash_bwd_dkv_plain(q, k, v, lse_ref, do, di, scale)
             hold("K4", kind, dk, dk_ref, dt, "flash_bwd_dkv dk")
             hold("K4", kind, dv, dv_ref, dt, "flash_bwd_dkv dv")
@@ -851,7 +926,8 @@ def time_train_kernels(gen, shapes):
     torch.autograd.grad with retain_graph=True: dq, dk and dv together, the
     work of K4 and K5 together), by CUDA events and by the profiler's device
     time (device_ms), and beside it one forward and backward, the yardstick
-    of PRs 2-4. Returns {key: {shape: stats}} for the JSON rows."""
+    of PRs 2-4. K5's bytes at d > 128 count its dS workspace, written and
+    read once. Returns {key: {shape: stats}} for the JSON rows."""
     stats = {"K2r": {}, "K4": {}, "K5": {}}
     for bh, n, m, d in shapes:
         scale = d**-0.5
@@ -873,6 +949,7 @@ def time_train_kernels(gen, shapes):
         sdpa_bwd, sdpa_bwd_dev = time_ms(bwd), device_ms(bwd)
         del kept, bwd
         lse_b = 4 * bh * n
+        ws_b = 4 * bh * n * PA.ds_pitch(m) if d > 128 else 0  # K5's dS, written and read
         io = lambda *sizes: 2 * sum(bh * x * d for x in sizes)  # bf16 operands
         exps = float(bh * n * m)  # one exp2 a score, in the forward and in each backward kernel
         rows = {
@@ -884,7 +961,7 @@ def time_train_kernels(gen, shapes):
                    8.0 * bh * n * m * d, io(n, m, m, n, m, m) + 2 * lse_b, sdpa_bwd),
             "K5": (lambda: PA.flash_bwd_dq(q, k, v, lse, do, di, scale),
                    lambda: PA.flash_bwd_dq_plain(q, k, v, lse, do, di, scale),
-                   6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b, sdpa_bwd),
+                   6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b + ws_b, sdpa_bwd),
         }
         for key, (kern, plain, ops, nbytes, lib) in rows.items():
             ms, plain_ms = time_ms(kern), time_ms(plain)
@@ -1115,7 +1192,9 @@ def full_loss_plan(recon, batch: int) -> dict:
     are collected and decoded: the noisy input, which depends on no parameter
     (one forward, no backward), and the first and last pred_x0 (under the
     towers' checkpoint: forward twice, K4 and K5 once). The two VAE encodes
-    run without gradients through K2. No K1, no K3."""
+    run without gradients through K2. No K1, no K3. The plan counts wrapper
+    calls: bf16 K5 at d=512 is one flash_bwd_dq call of two launches (dS,
+    then dQ = dS K)."""
     passes = 1 + recon.ddim_steps
     unet = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
     wide = (batch, 4096, 4096, 512)
@@ -1355,13 +1434,14 @@ def main():
     entries = {
         "K1": check_attention("K1", self_attention_smalld, as4(k1_shapes),
                               [(16, 4096, 4096, 40), (16, 1024, 1024, 80), (3, 1000, 1000, 40),
-                               (3, 200, 200, 80), (2, 1024, 1024, 8)], gen),
+                               (3, 200, 200, 80), (2, 1024, 1024, 8)] + K1_WIDE_SHAPES, gen),
         "K2": check_attention("K2", wide_attention, k2_shapes,
                               [(1, 4096, 4096, 512), (2, 1000, 1100, 512),
                                (2, 1000, 1100, 256), (8, 1000, 1100, 40),
                                (4, 1000, 1100, 80)], gen),
         "K3": check_groupnorm(k3_shapes, gen),
     }
+    entries["K1"]["d160"] = time_k1_wide(gen)
 
     print(f"phase 3: the main path, SwapConfig() at {cfg.image_size} px, DDIM-"
           f"{cfg.ddim_steps}, CFG {cfg.cfg_scale}, dedup, {REQUESTS} requests of "
@@ -1382,8 +1462,8 @@ def main():
     train_worst = check_train_kernels(gen, TRAIN_SHAPES + RAGGED_SHAPES)
     train_stats = time_train_kernels(gen, TRAIN_SHAPES)
     print("  the same kernels at the VAE decoder's head width, d = 512 (the split-depth "
-          "bf16 forward of attention_fwd_sm90.cuh, attention_flash_bwd_wide.cu), and "
-          "at d = 256", flush=True)
+          "bf16 forward of attention_fwd_sm90.cuh, K4 of attention_flash_bwd_wide.cu, bf16 "
+          "K5 of attention_bwd_wide_sm90.cuh), and at d = 256", flush=True)
     wide_worst = check_train_kernels(gen, WIDE_SHAPES)
     wide_stats = time_train_kernels(gen, WIDE_SHAPES[1:2])
 
@@ -1429,6 +1509,7 @@ def main():
     rows[0]["also_replaces"] = "reface_tpu/ops/attention_smalld.py:141"
     rows[0]["max_abs_err_vs_smalld_attention_plain"] = entries["K1"][
         "max_abs_err_vs_smalld_attention_plain"]
+    rows[0]["d160"] = entries["K1"]["d160"]
     lib_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     train_meta = {
         "K2r": ("flash_attention_fwd", "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
@@ -1436,7 +1517,7 @@ def main():
         "K4": ("flash_bwd_dkv", "reface_tpu_torch/csrc/attention_bwd_sm90.cuh",
                f"{lib_src}:1121", 4, "scaled_dot_product_attention backward alone (dq, dk, "
                "dv from a kept forward)"),
-        "K5": ("flash_bwd_dq", "reface_tpu_torch/csrc/attention_flash_bwd.cu",
+        "K5": ("flash_bwd_dq", "reface_tpu_torch/csrc/attention_bwd_sm90.cuh",
                f"{lib_src}:1456", 5, "scaled_dot_product_attention backward alone (dq, dk, "
                "dv from a kept forward)"),
     }
@@ -1463,8 +1544,9 @@ def main():
                              + ", ".join(f"{c}x(BH,N,M,D)={s}" for s, c in per_step.items())})
     # the same three kernels at d = 512, on the full-loss path (phase 8)
     for key, (name, _, repl, idx, lib_what) in train_meta.items():
-        src = ("reface_tpu_torch/csrc/attention_fwd_sm90.cuh" if key == "K2r"
-               else "reface_tpu_torch/csrc/attention_flash_bwd_wide.cu")
+        src = {"K2r": "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
+               "K4": "reface_tpu_torch/csrc/attention_flash_bwd_wide.cu",
+               "K5": "reface_tpu_torch/csrc/attention_bwd_wide_sm90.cuh"}[key]
         per_step = {sh: c for sh, c in full_per_step[name].items() if sh[3] == 512}
         total = collections.Counter()
         for shape, count in per_step.items():

@@ -1,34 +1,38 @@
-// Streaming (online-softmax) attention forward shared by the small-head
-// self-attention kernel (attention_smalld.cu) and the wide-head kernel
-// (attention_wide.cu). Plain C interface; built with
+// Streaming attention forward shared by the small-head self-attention kernel
+// (attention_smalld.cu) and the wide-head kernel (attention_wide.cu). Plain
+// C interface; built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 //
 // One block = 4 warps = 64 query rows of one (batch*head) and one slice of
 // the output's head dimension [s0, s0+dv). Each warp owns 16 query rows and
 // streams 64-key tiles: S = Q K^T over the full head dim (K read in chunks of
-// at most 128 columns through shared memory), an online row max, then
-// P V for the warp's rows and the block's output slice. Scores, row sums
-// and the output accumulator are fp32.
+// at most 128 columns through shared memory), the row shift, then P V for
+// the warp's rows and the block's output slice. Scores, row sums and the
+// output accumulator are fp32.
 //
 // Callers: K1 (attention_smalld.cu) in fp32, and in bf16 only at
 // 128 < D <= 256, and K2 / K2 with residuals (attention_wide.cu) in fp32
 // only; bf16 K1 at D <= 128 and bf16 K2 run the Hopper kernel of
 // attention_fwd_sm90.cuh.
 //
-// kLse = false is close to K1's rule, that of reface_tpu/ops/attention_smalld.py:
-// probabilities are exp2 of the log2e-folded scores, rounded to the input
-// dtype before the PV product, and the row sum is taken over those same
-// rounded values (the TPU kernel's ones-column). The running max replaces
-// the TPU kernel's first-256-key shift; softmax is shift-invariant, so both
-// are exact up to where the bf16 rounding of p happens (in fp32, exact up to
-// summation order). fast=1 drops the shift entirely.
-//
-// kLse = true is the library flash_attention's rule: the row sum takes the
-// fp32 probabilities, which are rounded to the input dtype only for the PV
-// product, and each query row's log-sum-exp (natural log, fp32) is written
-// to `lse` for the backward kernels (attention_flash_bwd.cu). In fp32 the
-// rounding is a no-op, so fp32 K2 (kLse = false) computes the library's
-// function too.
+// Three rules, by template option:
+//   kSmalld (bf16 K1 at 128 < D <= 256): the TPU smalld kernel's function
+//     (reface_tpu/ops/attention_smalld.py:_kernel, _kernel_tn), as
+//     attention_fwd_sm90.cuh's kSmalld computes it at D <= 128: one fixed
+//     shift per row, the max of its scaled scores over keys
+//     0 .. min(256, M) - 1, from a prologue that runs QK^T over those four
+//     key tiles for their max alone (none with fast=1); no running max and
+//     no rescale; p = exp2(s - shift) rounded to the input dtype, and the
+//     row sum taken over those same rounded values (the TPU kernel's
+//     ones-column), both added in registers.
+//   kLse = false, !kSmalld (fp32 K1, fp32 K2): a running row max, p rounded
+//     to the input dtype (a no-op in fp32) and summed as rounded. In fp32
+//     every shift is exact up to summation order, so this is K1's function
+//     and the library's; fast=1 drops the shift entirely.
+//   kLse = true: the library flash_attention's rule: the row sum takes the
+//     fp32 probabilities, which are rounded to the input dtype only for the
+//     PV product, and each query row's log-sum-exp (natural log, fp32) is
+//     written to `lse` for the backward kernels (attention_flash_bwd.cu).
 //
 // bf16 runs its products on the tensor cores with mma.sync m16n8k16
 // (fp32 accumulate). fp32 computes the same fragments with scalar FMAs, in
@@ -96,12 +100,13 @@ inline size_t attn_smem_bytes(int d, int dv) {
 }
 
 // NT = number of 8-wide output tiles the accumulator can hold (>= dv/8).
-template <typename T, int NT, bool kLse>
+template <typename T, int NT, bool kLse, bool kSmalld = false>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o,
                 float* __restrict__ lse, int n, int m, int d, int dv,
                 float scale_log2, int fast) {
+  static_assert(!(kLse && kSmalld), "K1 writes no lse");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = Pad<T>::v;
   const int dp = round_up(d, 16);
@@ -132,12 +137,13 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_max[2] = {-INFINITY, -INFINITY};  // kSmalld: the fixed shift
   float row_sum[2] = {0.f, 0.f};
   const int wr = warp * 16;  // first row of this warp inside the tile
 
-  for (int k0 = 0; k0 < m; k0 += kBN) {
-    float s[8][4];
+  // s = Q K^T for the key tile at k0 (unscaled), over the full head dim;
+  // with_v also stages the tile's V^T slice for the PV product.
+  auto tile_scores = [&](float (&s)[8][4], int k0, bool with_v) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 
@@ -150,7 +156,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         ? load8(kb + (size_t)(k0 + r) * d + c0 + c) : zero8<T>();
         store8(Ks + r * ks + c, x);
       }
-      if (c0 == 0) {
+      if (with_v && c0 == 0) {
         for (int i = tid; i < kBN * nt; i += kThreads) {
           int r = i / nt, c = (i % nt) * 8;
           Vec8<T> x = (k0 + r < m) ? load8(vb + (size_t)(k0 + r) * d + s0 + c) : zero8<T>();
@@ -186,8 +192,38 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
+  };
 
-    // online softmax over this tile; rows g (e=0,1) and g+8 (e=2,3)
+  // K1's fixed shift: the max of each row's scaled scores over the first
+  // min(kShiftKeys, m) keys, or 0 when fast
+  if constexpr (kSmalld) {
+    row_max[0] = row_max[1] = 0.f;
+    if (!fast) {
+      float mx[2] = {-INFINITY, -INFINITY};
+      for (int k0 = 0; k0 < min(kShiftKeys, m); k0 += kBN) {
+        float s[8][4];
+        tile_scores(s, k0, false);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + j * 8 + 2 * t + (e & 1) < m) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        row_max[r] = mx[r] * scale_log2;  // max(s) * c is max(s * c): c > 0
+      }
+    }
+  }
+
+  for (int k0 = 0; k0 < m; k0 += kBN) {
+    float s[8][4];
+    tile_scores(s, k0, true);
+
+    // the softmax of this tile; rows g (e=0,1) and g+8 (e=2,3)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
@@ -201,10 +237,13 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           mx = fmaxf(mx, val);
         }
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fast ? 0.f : fmaxf(row_max[r], mx);
-      const float alpha = fast ? 1.f : exp2f(row_max[r] - m_new);
+      float m_new = row_max[r], alpha = 1.f;  // kSmalld: the fixed shift, never rescaled
+      if constexpr (!kSmalld) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_new = fast ? 0.f : fmaxf(row_max[r], mx);
+        alpha = fast ? 1.f : exp2f(row_max[r] - m_new);
+      }
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -288,12 +327,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NT, bool kLse>
+template <typename T, int NT, bool kLse, bool kSmalld = false>
 inline int launch_attn(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int n, int m, int d, int dv,
                        float scale_log2, int fast, cudaStream_t stream) {
   const size_t smem = attn_smem_bytes<T>(d, dv);
-  auto kern = attn_fwd_kernel<T, NT, kLse>;
+  auto kern = attn_fwd_kernel<T, NT, kLse, kSmalld>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

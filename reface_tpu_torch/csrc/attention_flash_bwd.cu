@@ -18,37 +18,33 @@
 // (32, 4096, 40) that is 172 and 129 GFLOP against ~13 MB of operands and
 // results, far above the card's ~295 bf16 flop/byte ridge.
 //
-// Dispatch, by dtype, never as a fallback: bf16 dK/dV runs the Hopper kernel
-// of attention_bwd_sm90.cuh (wgmma, TMA, a producer warp; no bf16 instance
-// of flash_bwd_dkv_kernel is built); fp32 dK/dV and both dtypes of dQ run
-// the kernels below.
+// Dispatch, by dtype, never as a fallback: bf16 runs the Hopper kernels of
+// attention_bwd_sm90.cuh (wgmma, TMA, a producer warp: K4 with K and V
+// resident, K5 with Q and dO resident; no bf16 instance of
+// flash_bwd_dkv_kernel or flash_bwd_dq_kernel is built); fp32 runs the
+// scalar kernels below, which the card holds to the plain version at 2e-5.
 //
-// Design. The library splits the backward into a dK/dV kernel and a dQ kernel
-// so that neither needs atomics; so does this port, and both are
-// deterministic. A TPU grid walks its last axis in order and carries dK/dV
-// (or dQ) in scratch from one step to the next; here one block owns one
-// 64-row tile of the result and loops over the other sequence itself:
-//   K4 (fp32 here; bf16 in attention_bwd_sm90.cuh, 128 keys a block): one
-//       block per 64-key tile and (batch*head), K and V resident in
+// Design of the fp32 kernels. The library splits the backward into a dK/dV
+// kernel and a dQ kernel so that neither needs atomics; so does this port,
+// and both are deterministic. A TPU grid walks its last axis in order and
+// carries dK/dV (or dQ) in scratch from one step to the next; here one block
+// owns one 64-row tile of the result and loops over the other sequence
+// itself:
+//   K4: one block per 64-key tile and (batch*head), K and V resident in
 //       shared memory, looping over 64-query tiles of Q, dO, lse and di;
 //   K5: one block per 64-query tile and (batch*head), Q and dO resident,
 //       looping over 64-key tiles of K and V.
-// Each of the 4 warps owns 16 rows of the block's tile. bf16 runs every
-// product on the tensor cores with mma.sync m16n8k16 (fp32 accumulate); P and
-// dS stay in registers between products, in the accumulator layout, which is
-// the next product's A-fragment layout (as in the forward's PV). They are
-// rounded to the input dtype only for the product that reads them, as the
-// library does (P^T for dV, dS for dK and dQ; flash_attention.py:900,918,
-// 1261). Every product takes its B operand k-contiguous from shared memory, so
-// Q, dO (K4) and K (K5) are also staged transposed. fp32 runs the same
-// fragments with scalar FMAs in full fp32, so the card can hold the kernels
-// to the plain version tightly. D is a multiple of 8 up to 128 (no pad to 128
-// as on the TPU; the QK^T depth is padded to 16 in shared memory only). The
-// ragged edges are masked: queries past N get lse = +inf, so P = 0; keys past M
-// get P = 0 in K5 and are not stored by K4. Simple and right first: no TMA,
-// no wgmma, no pipelining of the tile loads (K5 in bf16 still runs so). Wider heads (the VAE decoder's
-// d=512) run the sliced kernels of attention_flash_bwd_wide.cu; the per-warp
-// products and the tile staging both files use are in attention_flash_bwd.cuh.
+// Each of the 4 warps owns 16 rows of the block's tile and computes the
+// fragments of mma m16n8k16 with scalar FMAs in full fp32; P and dS stay in
+// registers between products, in the accumulator layout, which is the next
+// product's A-fragment layout (as in the forward's PV). Every product takes
+// its B operand k-contiguous from shared memory, so Q, dO (K4) and K (K5)
+// are also staged transposed. D is a multiple of 8 up to 128 (the QK^T depth
+// is padded to 16 in shared memory only). The ragged edges are masked:
+// queries past N get lse = +inf, so P = 0; keys past M get P = 0 in K5 and
+// are not stored by K4. Wider heads (the VAE decoder's d=512) run
+// attention_flash_bwd_wide.cu; the per-warp products and the tile staging
+// both files use are in attention_flash_bwd.cuh.
 #include "attention_bwd_sm90.cuh"
 #include "attention_flash_bwd.cuh"
 
@@ -311,11 +307,8 @@ extern "C" int reface_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    int m, int d, float scale, int dtype,
                                    void* stream) {
   REFACE_BWD_CHECK();
-  if (dtype == 1) {
-    if (d <= 48) return launch_dq<__nv_bfloat16, 6>(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
-    if (d <= 96) return launch_dq<__nv_bfloat16, 12>(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
-    return launch_dq<__nv_bfloat16, 16>(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
-  }
+  if (dtype == 1)
+    return sm90::flash_bwd_dq_bf16(q, k, v, lse, dout, di, dq, bh, n, m, d, scale, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   REFACE_BWD_FP32(launch_dq, q, k, v, lse, dout, di, dq, bh, n, m, d, scale);
 }

@@ -9,26 +9,36 @@
 // reface_tpu/nn/vae.py:98 gives them: (B, 1, 4096, 512).
 //
 // Bound on the card: operations. At (BH, N, M, D) = (4, 4096, 4096, 512) K4 is
-// 8*N*M*D*BH = 275 GFLOP and K5 6*N*M*D*BH = 206 GFLOP against ~100 MB of
-// operands and results.
+// 8*N*M*D*BH = 275 GFLOP (0.278 ms at the bf16 peak) and K5 6*N*M*D*BH =
+// 206 GFLOP (0.208 ms) against ~100 MB of operands and results (K5 in bf16
+// adds its dS workspace, 2 x 128 MiB written and read).
 //
-// Design. A 64-row fp32 tile of dK and dV (or dQ) over all 512 columns is
-// 128 KB a tile, more than a block's registers (256 KB for the whole SM), and
-// the D <= 128 kernels' resident K/V (or Q/dO) tiles would not fit its shared
-// memory beside the streamed ones. So the head dimension is split across
-// blocks, as the forward splits it (attention_wide.cu): a block owns one
-// 64-row tile and one 128-column slice of the result (grid.y = D / 128). It
-// recomputes S = Q K^T and dP = dO V^T over the full depth, streaming all four
-// operands through shared memory in 128-column chunks, and runs the products
-// that feed its slice (dV += P^T dO, dK += dS^T Q, or dQ += dS K) against the
-// slice's 128 columns only, staged transposed once per tile. Nothing is
-// resident: K and V (K4) or Q and dO (K5) are re-read from L2 for every tile
-// of the other sequence. The recomputation costs (2*512 + 2*128) / (4*128) =
-// 2.5x the products for K4 and (2*512 + 128) / (3*128) = 3x for K5; it keeps
-// the register tile of the D = 128 instance, needs no atomics (one block
-// writes each element once: deterministic), and gives the grid 4x the blocks.
-// Numerics, masking of the ragged edges and the fp32 instances are those of
+// Dispatch, by dtype, never as a fallback:
+//   K5, bf16 -> attention_bwd_wide_sm90.cuh: dS into a (BH, N, Mp) bf16
+//     workspace that the caller allocates, then dQ = dS K, two wgmma/TMA
+//     kernels that run every product once (no bf16 instance of
+//     flash_bwd_dq_wide_kernel is built);
+//   K4 in both dtypes and K5 in fp32 -> the sliced kernels below.
+//
+// Design of the sliced kernels. A 64-row fp32 tile of dK and dV (or dQ) over
+// all 512 columns is 128 KB a tile, more than a block's registers (256 KB for
+// the whole SM), and the D <= 128 kernels' resident K/V (or Q/dO) tiles would
+// not fit its shared memory beside the streamed ones. So the head dimension
+// is split across blocks: a block owns one 64-row tile and one 128-column
+// slice of the result (grid.y = D / 128). It recomputes S = Q K^T and
+// dP = dO V^T over the full depth, streaming all four operands through
+// shared memory in 128-column chunks, and runs the products that feed its
+// slice (dV += P^T dO, dK += dS^T Q, or dQ += dS K) against the slice's 128
+// columns only, staged transposed once per tile. Nothing is resident: K and
+// V (K4) or Q and dO (K5) are re-read from L2 for every tile of the other
+// sequence. The recomputation costs (2*512 + 2*128) / (4*128) = 2.5x the
+// products for K4 and (2*512 + 128) / (3*128) = 3x for K5; it keeps the
+// register tile of the D = 128 instance, needs no atomics (one block writes
+// each element once: deterministic), and gives the grid 4x the blocks. bf16
+// K4 runs its products with mma.sync m16n8k16, fp32 with scalar FMAs in
+// full fp32. Numerics and masking of the ragged edges are those of
 // attention_flash_bwd.cu.
+#include "attention_bwd_wide_sm90.cuh"
 #include "attention_flash_bwd.cuh"
 
 namespace reface {
@@ -313,16 +323,19 @@ extern "C" int reface_flash_bwd_dkv_wide(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// ws: the bf16 dS workspace that bf16 K5 writes and reads, (BH, N, ws_pitch)
+// contiguous with ws_pitch = M rounded up to 8; the caller allocates it
+// (fp32 takes nullptr).
 extern "C" int reface_flash_bwd_dq_wide(const void* q, const void* k,
                                         const void* v, const void* lse,
                                         const void* dout, const void* di,
-                                        void* dq, int bh, int n, int m, int d,
-                                        float scale, int dtype, void* stream) {
+                                        void* dq, void* ws, int ws_pitch, int bh, int n,
+                                        int m, int d, float scale, int dtype, void* stream) {
   if (d <= 0 || d % reface::kKC != 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return reface::launch_dq_wide<__nv_bfloat16>(q, k, v, lse, dout, di, dq, bh,
-                                                 n, m, d, scale, s);
+    return reface::sm90::wide::flash_bwd_dq_wide_bf16(q, k, v, lse, dout, di, dq, ws, ws_pitch,
+                                                      bh, n, m, d, scale, s);
   if (dtype == 0)
     return reface::launch_dq_wide<float>(q, k, v, lse, dout, di, dq, bh, n, m,
                                          d, scale, s);

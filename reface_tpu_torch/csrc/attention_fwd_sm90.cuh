@@ -108,6 +108,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace reface {
@@ -254,9 +255,6 @@ struct Cfg {
 };
 
 // ------------------------------------------------------------ the kernel
-
-// K1's shift spans the scores of the first kShiftKeys keys of each row.
-constexpr int kShiftKeys = 256;
 
 // One consumer warpgroup's state and steps. The arrays live in registers:
 // every member function is inlined and indexes them only with constants.

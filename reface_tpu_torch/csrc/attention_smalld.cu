@@ -18,9 +18,12 @@
 //     warpgroup, the two consumer warpgroups in ping-pong) with K1's rules
 //     (kSmalld: the fixed shift and the rounded row sum);
 //   bf16, 128 < D <= 256 -> attn_fwd_kernel of attention_common.cuh
-//     (mma.sync, an online max: the shift differs from the TPU kernel's,
-//     which changes where p is rounded). No UNet level reaches it: the
-//     d = 160 level has 256 tokens, which ops/attention.py sends to einsum;
+//     (mma.sync) with the same rules under its own kSmalld option: a
+//     prologue runs QK^T over the first 256 keys for the fixed shift, and
+//     the rounded p are summed in registers. The 512 px UNet does not reach
+//     it (its d = 160 level has 256 tokens, which ops/attention.py sends to
+//     einsum); a 1024 px input does (1024 tokens at d = 160). It stays on
+//     mma.sync: it is off the main path;
 //   fp32 -> attn_fwd_kernel's scalar path, where rounding p is a no-op and
 //     the shift is exact either way; the card holds it to the plain version
 //     at 2e-5.
@@ -38,8 +41,8 @@ extern "C" int reface_smalld_attention(const void* q, const void* k,
     if (d <= 128)
       return sm90::attention_fwd_bf16_d128<true>(q, k, v, o, nullptr, bh, n, n, d, scale_log2, s,
                                                  fast);
-    return launch_attn<__nv_bfloat16, 32, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2,
-                                                 fast, s);
+    return launch_attn<__nv_bfloat16, 32, false, true>(q, k, v, o, nullptr, bh, n, n, d, d,
+                                                       scale_log2, fast, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   if (d <= 48) return launch_attn<float, 6, false>(q, k, v, o, nullptr, bh, n, n, d, d, scale_log2, fast, s);

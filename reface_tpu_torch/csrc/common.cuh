@@ -9,6 +9,10 @@
 
 namespace reface {
 
+// K1's row shift spans the scores of the first kShiftKeys keys
+// (reface_tpu/ops/attention_smalld.py:_shift), in both of its kernels.
+constexpr int kShiftKeys = 256;
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);

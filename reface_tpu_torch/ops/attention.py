@@ -40,7 +40,7 @@ from reface_tpu_torch.ops.attention_smalld import (
 
 __all__ = ["multi_head_attention", "attention_bhnd", "wide_attention",
            "FlashAttention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_bwd_dkv", "flash_bwd_dq", "flash_attention_fwd_plain",
+           "flash_bwd_dkv", "flash_bwd_dq", "ds_pitch", "flash_attention_fwd_plain",
            "flash_attention_bwd_plain", "flash_bwd_dkv_plain",
            "flash_bwd_dq_plain", "row_dot"]
 
@@ -236,12 +236,31 @@ def flash_bwd_dkv(q, k, v, lse, do, di, scale: float):
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, lse, do, di, scale: float):
+def ds_pitch(m: int) -> int:
+    """Row length of bf16 K5's dS workspace at D > 128: M rounded up to 8, a
+    TMA row pitch of a multiple of 16 bytes (the keys in [M, pitch) hold 0)."""
+    return -(-m // 8) * 8
+
+
+def flash_bwd_dq(q, k, v, lse, do, di, scale: float, workspace=None):
     """K5: dq from the saved lse and di = row_dot(o, do).
 
-    CUDA: reface_flash_bwd_dq of csrc/attention_flash_bwd.cu, or for D > 128
-    reface_flash_bwd_dq_wide of csrc/attention_flash_bwd_wide.cu. CPU: the
-    plain version.
+    CUDA, D <= 128: reface_flash_bwd_dq of csrc/attention_flash_bwd.cu. bf16
+    runs the Hopper kernel of csrc/attention_bwd_sm90.cuh: Q and dO resident
+    for 128 queries a block, K and V streamed by TMA, S = Q K^T and
+    dP = dO V^T by wgmma, dS built and rounded to bf16 in registers, then
+    dQ += dS K with K read MN-major. fp32 runs the scalar kernel.
+    CUDA, D > 128: reface_flash_bwd_dq_wide of
+    csrc/attention_flash_bwd_wide.cu. bf16 runs two launches of
+    csrc/attention_bwd_wide_sm90.cuh: dS, rounded to bf16 as the library
+    rounds it for the dQ product, into a (BH, N, ds_pitch(M)) workspace,
+    then dQ = dS K; the workspace is allocated here with torch.empty on q's
+    device unless the caller passes one as `workspace` (contiguous bf16, that
+    shape), and can then read dS from it. fp32 runs the sliced scalar kernel.
+    Bound: the tensor cores, 6 BH N M D operations, each product run once
+    (at D > 128 the workspace adds 4 BH N ds_pitch(M) bytes, which stay
+    below it). Deterministic: one writer per element, no atomics.
+    CPU: the plain version (`workspace` is not written).
     """
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, lse, do, di, scale)
@@ -250,10 +269,23 @@ def flash_bwd_dq(q, k, v, lse, do, di, scale: float):
     _bwd_operands("flash_bwd_dq", q, k, v, lse, do, di)
     bh, n, d = q.shape
     m = k.shape[1]
+    ws_shape = (bh, n, ds_pitch(m))
+    if d > _SLICE and q.dtype == torch.bfloat16:
+        if workspace is None:
+            workspace = torch.empty(ws_shape, dtype=torch.bfloat16, device=q.device)
+        elif workspace.shape != ws_shape or workspace.dtype != torch.bfloat16 \
+                or workspace.device != q.device or not workspace.is_contiguous():
+            raise ValueError(f"flash_bwd_dq: the workspace must be contiguous bf16 "
+                             f"{ws_shape} on q's device")
+        ws = (workspace.data_ptr(), ws_shape[2])
+    elif workspace is not None:
+        raise ValueError("flash_bwd_dq: only bf16 at D > 128 takes a workspace")
+    else:
+        ws = (None, 0) if d > _SLICE else ()
     dq = torch.empty_like(q)
     rc = _bwd_entry(d, "reface_flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), bh, n, m, d, scale,
+        di.data_ptr(), dq.data_ptr(), *ws, bh, n, m, d, scale,
         kernels.DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(rc, "flash_bwd_dq")
     kernels.count_launch(flash_bwd_dq, (bh, n, m, d))

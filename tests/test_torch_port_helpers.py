@@ -33,7 +33,7 @@ def j_flash_residuals(q, k, v, scale):
     from jax.experimental.pallas.ops.tpu import flash_attention as FA
 
     n, m, d = q.shape[2], k.shape[2], q.shape[3]
-    pad = ((0, 0), (0, 0), (0, 0), (0, 128 - d))
+    pad = ((0, 0), (0, 0), (0, 0), (0, max(128, -(-d // 128) * 128) - d))
     q, k, v = (jnp.pad(t, pad) for t in (q, k, v))
     bq, bkv = min(512, n), min(1024, m)
     sizes = FA.BlockSizes(
