@@ -14,16 +14,16 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
 
   1. device: the card's name and power limit (nvidia-smi), the build time of
      each source, and the SASS of the Hopper kernels (cuobjdump: every bf16
-     instance of the attention forward, K1's included, of K4 and K5 at
-     D <= 128 and of K5's two d = 512 kernels must hold wgmma and TMA
-     instructions, HGMMA and UTMALDG, and no bf16 mma.sync instance of the
-     old kernels they replace may be left to reach, but K1's at
-     128 < D <= 256, which must have K1's rules, and K4's at d = 512);
+     instance of the attention forward, K1's included at every width, of K4
+     and K5 at D <= 128 and of the three d > 128 backward kernels must hold
+     wgmma and TMA instructions, HGMMA and UTMALDG, and no bf16 mma.sync
+     instance of the old kernels they replace may be left to reach);
   2. kernels: K1 (UNet self-attention), K2 (VAE mid-block attention) and K3
      (GroupNorm+SiLU) against their plain PyTorch versions at every shape the
-     survey found, K1 also at ragged and tiny shapes and at d = 160 (the
-     mma.sync instance, timed beside sdpa) and K2 at ragged shapes and
-     D = 40, 80, 256, in bf16 and fp32 (TF32 off); bf16 K1 also against
+     survey found, K1 also at ragged and tiny shapes and at 128 < D <= 256
+     (d = 160 timed beside sdpa), and one UNet forward at a 1024 px input's
+     128 x 128 latent (K1 at d = 40, 80 and 160, held to a plan), and K2 at
+     ragged shapes and D = 40, 80, 160, 256, in bf16 and fp32 (TF32 off); bf16 K1 also against
      the TPU kernel's own function (smalld_attention_plain, both modes, one
      bf16 ulp), bf16 K2 against the library's function
      (flash_attention_fwd_plain, one bf16 ulp) and bit-equal to the residual
@@ -40,15 +40,17 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      every kernel wrapper computes its plain version;
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
-     (32,1024,80), and ragged ones at d = 40 and 80) and of the VAE decoder's
+     (32,1024,80), and ragged ones at d = 40 and 80), of the VAE decoder's
      mid-block ((1,4096,512), (4,4096,512), a ragged one, and a ragged
-     d = 256 off the main path), bf16 and fp32: the forward with
-     residuals (K2's o and lse), K4 (dk, dv) and K5 (dq; at d > 128 in bf16
-     also its dS workspace, against the plain dS rounded to bf16, zeros at
-     keys past M included), each timed beside its bound, its plain version
-     and scaled_dot_product_attention (for K4 and K5 its backward alone,
-     which computes dq, dk and dv together from a kept forward, and beside
-     it the forward and backward);
+     d = 256 off the main path) and of a 1024 px UNet's d = 160 level in
+     training ((32,1024,1024,160) and a ragged one, padded to 256 by the
+     wrappers), bf16 and fp32: the forward with residuals (K2's o and lse),
+     K4 (dk, dv) and K5 (dq; at d > 128 in bf16 also the dS and P
+     workspaces that K5's call writes and K4's GEMM reads, against
+     flash_bwd_ds_plain, zeros at keys past M included), each timed beside
+     its bound, its plain version and scaled_dot_product_attention (for K4
+     and K5 its backward alone, which computes dq, dk and dv together from a
+     kept forward, and beside it the forward and backward);
   7. the eps-MSE training path: make_train_step(SwapConfig(), ...) at batch 4
      and 512 px, 2 steps on seeded random weights; checks the loss, that
      every trainable parameter moved and every frozen one did not, the
@@ -150,9 +152,14 @@ TOL = {
 }
 REL_TOL_BF16 = 1e-2
 K1_ULPS = K2_ULPS = 1
-# bf16 K1 at 128 < D <= 256 (csrc/attention_smalld.cu's mma.sync instance):
-# off the 512 px main path, reached by a 1024 px input's 1024 tokens at d=160
-K1_WIDE_SHAPES = [(16, 1024, 1024, 160), (3, 600, 600, 160)]
+# bf16 K1 at 128 < D <= 256, one shape or more for each of its three Hopper
+# instances (QK^T 160, 192 and 256 deep): off the 512 px main path, reached
+# by a 1024 px input's 1024 tokens at d=160
+K1_WIDE_SHAPES = [(16, 1024, 1024, 160), (3, 600, 600, 160), (2, 600, 600, 176),
+                  (2, 1000, 1000, 256)]
+# One UNet forward at a 1024 px input's 128 x 128 latent (batch 2, CFG
+# dedup): K1 launches per forward by head width, 5 at each attention level
+K1_PLAN_1024 = {40: 5, 80: 5, 160: 5}
 # Relative L2 distance of each bf16 tower from an fp32 copy with the same
 # weights (phase 4); random weights, full width. About twice what was seen:
 # UNet 1.42e-2, fused 1.36e-2, VAE encode 1.57e-2, decode 1.17e-2,
@@ -174,6 +181,10 @@ TRAIN_SHAPES = ((32, 4096, 4096, 40), (32, 1024, 1024, 80))
 # training batch.
 WIDE_SHAPES = ((1, 4096, 4096, 512), (TRAIN_BATCH, 4096, 4096, 512), (2, 1000, 1100, 512),
                (2, 1000, 1100, 256))
+# A 1024 px UNet's d=160 level in training (1024 tokens, 8 heads at batch
+# 4) and a ragged shape: the wrappers pad the head to 256, as the JAX
+# package's _flash_attention does
+D160_SHAPES = ((8 * TRAIN_BATCH, 1024, 1024, 160), (4, 1000, 1100, 160))
 # Ragged shapes (N, M not multiples of any tile) at the UNet's head widths,
 # checked beside TRAIN_SHAPES in phase 6; (2, 1000, 1100, 256) above is a
 # width off the main path.
@@ -182,7 +193,8 @@ RAGGED_SHAPES = ((32, 1000, 1100, 40), (4, 1000, 1100, 80))
 
 def fwd_key_tile(d: int) -> int:
     """Keys per tile of the bf16 forward (csrc/attention_fwd_sm90.cuh:
-    kBN = 128 at D <= 128, 32 above): the dropped-tile checks drop these."""
+    kBN = 128 at D <= 128, 32 above, at the padded width too): the
+    dropped-tile checks drop these."""
     return 128 if d <= 128 else 32
 
 # Launches per training step, in KERNELS order: under remat the forward of
@@ -304,33 +316,33 @@ def sass_functions(name: str) -> dict:
     return {f.splitlines()[0].strip(): f for f in sass.split("Function : ")[1:]}
 
 
-# check_sass(): the Hopper kernels each library must hold, and how many bf16
-# mma.sync instances of each old kernel it may still hold
+# check_sass(): the Hopper kernels each library must hold, and the old
+# kernels of which no bf16 (mma.sync) instance may be left
 SASS_HOPPER = {
     "attention_wide": ("attn_fwd_sm90",),
     "attention_smalld": ("attn_fwd_sm90",),
     "attention_flash_bwd": ("flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"),
-    "attention_flash_bwd_wide": ("flash_bwd_ds_sm90", "flash_bwd_dq_gemm_sm90"),
+    "attention_flash_bwd_wide": ("flash_bwd_ds_sm90", "flash_bwd_dq_gemm_sm90",
+                                 "flash_bwd_dkv_gemm_sm90"),
 }
 SASS_OLD_BF16 = {
-    "attention_wide": {"attn_fwd_kernel": 0},
-    "attention_smalld": {"attn_fwd_kernel": 1},  # K1 at 128 < D <= 256
-    "attention_flash_bwd": {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0},
-    "attention_flash_bwd_wide": {"flash_bwd_dq_wide_kernel": 0,
-                                 "flash_bwd_dkv_wide_kernel": 1},  # K4 at d = 512
+    "attention_wide": ("attn_fwd_kernel",),
+    "attention_smalld": ("attn_fwd_kernel",),
+    "attention_flash_bwd": ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
+    "attention_flash_bwd_wide": ("flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel"),
 }
 
 
 def check_sass():
     """The Hopper kernels' instructions. Every bf16 instance of the attention
-    forward (attn_fwd_sm90: K2 and K2r in attention_wide, K1 in
-    attention_smalld), of K4 and K5 at D <= 128 (flash_bwd_dkv_sm90,
-    flash_bwd_dq_sm90 in attention_flash_bwd) and of K5's two d = 512
-    kernels (flash_bwd_ds_sm90, flash_bwd_dq_gemm_sm90 in
+    forward (attn_fwd_sm90: K2 and K2r in attention_wide, K1 at every width
+    in attention_smalld, with K1's rules), of K4 and K5 at D <= 128
+    (flash_bwd_dkv_sm90, flash_bwd_dq_sm90 in attention_flash_bwd) and of
+    the three d > 128 backward kernels (flash_bwd_ds_sm90,
+    flash_bwd_dq_gemm_sm90, flash_bwd_dkv_gemm_sm90 in
     attention_flash_bwd_wide) runs wgmma (HGMMA) and TMA loads (UTMALDG);
     no bf16 instance of the old mma.sync kernels (HMMA) is left for them to
-    reach, but K1's for 128 < D <= 256 in attention_smalld, which must have
-    K1's rules (kSmalld), and K4's at d = 512 (SASS_OLD_BF16)."""
+    reach (SASS_OLD_BF16)."""
     for lib, hopper in SASS_HOPPER.items():
         funcs = sass_functions(lib)
         for new_name in hopper:
@@ -340,17 +352,14 @@ def check_sass():
                   f"counts {sorted(new.values())}", flush=True)
             if not new or any(h == 0 or t == 0 for h, t in new.values()):
                 fail(f"{lib}: a bf16 Hopper kernel {new_name} does not run wgmma and TMA")
-            if lib == "attention_smalld" and any("ELb0ELb1EE" not in n for n in new):
+            if lib == "attention_smalld" and any(not short_name(n).endswith(",1>") for n in new):
                 fail("attention_smalld holds a Hopper forward without K1's rules")
-        for old_name, allowed in SASS_OLD_BF16[lib].items():
+        for old_name in SASS_OLD_BF16[lib]:
             old_bf16 = [n for n, f in funcs.items() if old_name in n and "HMMA" in f]
             print(f"  SASS of {lib}: bf16 mma.sync instances of {old_name}: "
-                  f"{len(old_bf16)} (allowed {allowed})", flush=True)
-            if len(old_bf16) != allowed:
+                  f"{len(old_bf16)} (allowed 0)", flush=True)
+            if old_bf16:
                 fail(f"{lib}: the old bf16 kernel {old_name} is still there to reach")
-            # K1's mma.sync instance: <bf16, NT 32, kLse false, kSmalld true>, D > 128 only
-            if lib == "attention_smalld" and any("Li32ELb0ELb1EE" not in n for n in old_bf16):
-                fail("attention_smalld's mma.sync forward lacks K1's rules, or serves D <= 128")
 
 
 # ------------------------------------------------------------------ survey
@@ -526,9 +535,9 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
 
 
 def time_k1_wide(gen):
-    """bf16 K1 at d = 160 (the mma.sync instance with K1's rules), off the
-    512 px main path: its time beside its bound, smalld_attention_plain and
-    sdpa at K1_WIDE_SHAPES[0]."""
+    """bf16 K1 at d = 160 (the Hopper forward's kDp = 192 instance with K1's
+    rules), off the 512 px main path: its time beside its bound,
+    smalld_attention_plain and sdpa at K1_WIDE_SHAPES[0]."""
     bh, n, m, d = K1_WIDE_SHAPES[0]
     q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
@@ -542,6 +551,32 @@ def time_k1_wide(gen):
           f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, sdpa {lib:.4f} ms", flush=True)
     return {"shape": K1_WIDE_SHAPES[0], "ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": b, "bound_by": by}
+
+
+def unet_forward_1024(swapper, cfg: SwapConfig):
+    """One UNet forward at a 1024 px input's 128 x 128 latent (the same
+    UNet, batch 2, bf16, CFG dedup): K1's launches by head width against
+    K1_PLAN_1024 (d = 160 at 1024 tokens reaches the wide instance), and a
+    finite eps for both CFG halves. Einsum at 16384 tokens is too large
+    to serve as its yardstick; K1_WIDE_SHAPES hold the kernel. Returns the
+    launches by shape."""
+    big = dataclasses.replace(cfg, image_size=1024, latent_size=128)
+    x9, t, ctx2 = unet_inputs(big, seed=13, ctx_batch=2 * BATCH)
+    self_attention_smalld.shapes = collections.Counter()
+    with torch.inference_mode():
+        out = swapper.unet(x9, t, ctx2, cfg_expand=True)
+    torch.cuda.synchronize()
+    shapes, self_attention_smalld.shapes = self_attention_smalld.shapes, None
+    by_d = collections.Counter()
+    for (_, _, d), c in shapes.items():
+        by_d[d] += c
+    ok = out.shape == (2 * BATCH, 4, 128, 128) and bool(torch.isfinite(out).all())
+    print(f"  UNet forward at a 128 x 128 latent (1024 px, batch {BATCH}, dedup): K1 "
+          f"launches {dict(shapes)}, by head width {dict(by_d)} (planned {K1_PLAN_1024}); "
+          f"out {tuple(out.shape)} finite {ok}", flush=True)
+    if dict(by_d) != K1_PLAN_1024 or not ok:
+        fail("the 1024 px UNet forward did not launch K1 as planned or is not finite")
+    return dict(shapes)
 
 
 def check_groupnorm(shapes, gen):
@@ -701,12 +736,11 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
     for e in rows:
         name = e.key
         kind = ("K2/K2r d=512 attn_fwd_sm90" if "attn_fwd_sm90<512" in name else
-                "K1 attn_fwd_sm90" if "attn_fwd_sm90" in name and "false, true>" in name else
+                "K1 attn_fwd_sm90" if "attn_fwd_sm90" in name and ", true>" in name else
                 "K2/K2r attn_fwd_sm90" if "attn_fwd_sm90" in name else
-                "K1 attn_fwd_kernel" if "attn_fwd_kernel" in name else
-                "K4 d=512 flash_bwd_dkv_wide" if "flash_bwd_dkv_wide" in name else
-                "K5 d=512" if any(w in name for w in ("flash_bwd_dq_wide", "flash_bwd_ds_sm90",
-                                                      "flash_bwd_dq_gemm_sm90")) else
+                "K4 d=512 flash_bwd_dkv_gemm" if "flash_bwd_dkv_gemm_sm90" in name else
+                "K5 d=512 (with the shared dS/P)" if any(
+                    w in name for w in ("flash_bwd_ds_sm90", "flash_bwd_dq_gemm_sm90")) else
                 "K4 flash_bwd_dkv" if "flash_bwd_dkv" in name else
                 "K5 flash_bwd_dq" if "flash_bwd_dq" in name else
                 "K3 gn_" if "gn_partial" in name or "gn_apply" in name else
@@ -819,22 +853,24 @@ def tiny_reference():
 
 # ------------------------------------------------------------------ phase 6
 
-def check_ds_workspace(ws, q, k, v, lse, do, di, scale):
-    """bf16 K5's dS workspace at d > 128 against the plain dS rounded to
-    bf16 (`_probs_and_ds`, the value the library rounds for its dQ product):
-    within one bf16 ulp of the largest |dS| at keys below M, and exactly 0
-    at keys in [M, ds_pitch(M))."""
+def check_workspaces(workspaces, q, k, v, lse, do, di, scale):
+    """The dS and P workspaces that bf16 K5's call writes at d > 128 (and
+    K4's GEMM reads) against flash_bwd_ds_plain (dS and P rounded to bf16
+    as the library rounds them for its products): each within one bf16 ulp
+    of its largest magnitude at keys below M, and exactly 0 at keys in
+    [M, ds_pitch(M))."""
     m = k.shape[1]
-    ref = PA._probs_and_ds(q, k, v, lse, do, di, scale)[1].to(torch.bfloat16)
-    err = (ws[..., :m].float() - ref.float()).abs().max().item()
-    lim = ulp_bf16(ref)
-    pad = ws[..., m:]
-    zeros = bool((pad == 0).all())
-    print(f"    flash_bwd_dq's dS workspace {tuple(ws.shape)} against the plain dS in "
-          f"bf16: max_abs_err {err:.3e} (tol {lim:.3e}, one bf16 ulp of max |dS|); the "
-          f"{pad.shape[-1]} keys past M hold 0: {zeros}", flush=True)
-    if not (err <= lim and zeros):
-        fail("bf16 K5's dS workspace is not the plain dS rounded to bf16")
+    for name, ws, ref in zip(("dS", "P"), workspaces,
+                             PA.flash_bwd_ds_plain(q, k, v, lse, do, di, scale)):
+        err = (ws[..., :m].float() - ref[..., :m].float()).abs().max().item()
+        lim = ulp_bf16(ref)
+        pad = ws[..., m:]
+        zeros = bool((pad == 0).all())
+        print(f"    the {name} workspace {tuple(ws.shape)} against flash_bwd_ds_plain: "
+              f"max_abs_err {err:.3e} (tol {lim:.3e}, one bf16 ulp of max |{name}|); the "
+              f"{pad.shape[-1]} keys past M hold 0: {zeros}", flush=True)
+        if not (err <= lim and zeros):
+            fail(f"the bf16 {name} workspace is not flash_bwd_ds_plain's")
 
 
 def check_train_kernels(gen, shapes):
@@ -847,8 +883,10 @@ def check_train_kernels(gen, shapes):
     the plain forward's o with its last key tile dropped (the bf16
     forward's kBN keys), the plain dV with its last 64-key tile dropped,
     and the plain dQ without the last 64 keys' contribution. At d > 128 in
-    bf16 K5 writes its dS workspace into a tensor filled with NaN, which
-    check_ds_workspace then holds to the plain dS."""
+    bf16 K5's call writes the dS and P workspaces into tensors filled with
+    NaN, which check_workspaces then holds to flash_bwd_ds_plain; K4 runs
+    its GEMM from them, and alone, with its own dS/P launch, and
+    flash_attention_bwd runs both from one dS/P launch: the same bits."""
     worst = {k: {"fp32": 0.0, "bf16": 0.0, "rel": 0.0} for k in ("K2r", "K4", "K5")}
     worst_lse = 0.0
 
@@ -880,15 +918,29 @@ def check_train_kernels(gen, shapes):
             worst_lse = max(worst_lse, lse_err)
             del o, lse
             di = PA.row_dot(o_ref, do)
-            dk, dv = PA.flash_bwd_dkv(q, k, v, lse_ref, do, di, scale)
-            ws = None
             if kind == "bf16" and d > 128:  # NaN shows any element left unwritten
-                ws = torch.full((bh, n, PA.ds_pitch(m)), math.nan, dtype=dt, device="cuda")
-            dq = PA.flash_bwd_dq(q, k, v, lse_ref, do, di, scale, workspace=ws)
+                ws = tuple(torch.full((bh, n, PA.ds_pitch(m)), math.nan, dtype=dt, device="cuda")
+                           for _ in range(2))
+                dq = PA.flash_bwd_dq(q, k, v, lse_ref, do, di, scale, workspace=ws[0],
+                                     p_workspace=ws[1])
+                dk, dv = PA.flash_bwd_dkv(q, k, v, lse_ref, do, di, scale, workspaces=ws)
+                torch.cuda.synchronize()
+                check_workspaces(ws, q, k, v, lse_ref, do, di, scale)
+                alone = PA.flash_bwd_dkv(q, k, v, lse_ref, do, di, scale)
+                fused = PA.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, scale)
+                same = torch.equal(alone[0], dk) and torch.equal(alone[1], dv)
+                same_bwd = all(map(torch.equal, fused, (dq, dk, dv)))
+                print(f"    flash_bwd_dkv alone (its own dS/P launch) bit-equal to its GEMM on "
+                      f"K5's workspaces: {same}; flash_attention_bwd (FlashAttention's "
+                      f"backward: one dS/P launch for both) bit-equal: {same_bwd}", flush=True)
+                if not (same and same_bwd):
+                    fail("flash_bwd_dkv alone or flash_attention_bwd disagrees with the GEMMs "
+                         "on K5's workspaces")
+                del ws, alone, fused
+            else:
+                dk, dv = PA.flash_bwd_dkv(q, k, v, lse_ref, do, di, scale)
+                dq = PA.flash_bwd_dq(q, k, v, lse_ref, do, di, scale)
             torch.cuda.synchronize()
-            if ws is not None:
-                check_ds_workspace(ws, q, k, v, lse_ref, do, di, scale)
-                del ws
             dk_ref, dv_ref = PA.flash_bwd_dkv_plain(q, k, v, lse_ref, do, di, scale)
             hold("K4", kind, dk, dk_ref, dt, "flash_bwd_dkv dk")
             hold("K4", kind, dv, dv_ref, dt, "flash_bwd_dkv dv")
@@ -926,8 +978,11 @@ def time_train_kernels(gen, shapes):
     torch.autograd.grad with retain_graph=True: dq, dk and dv together, the
     work of K4 and K5 together), by CUDA events and by the profiler's device
     time (device_ms), and beside it one forward and backward, the yardstick
-    of PRs 2-4. K5's bytes at d > 128 count its dS workspace, written and
-    read once. Returns {key: {shape: stats}} for the JSON rows."""
+    of PRs 2-4. At d > 128 each is timed as flash_attention_bwd runs it: K5's
+    call is the dS/P launch (the dS and P workspaces written once) and the
+    dQ GEMM (dS read once), K4's the dV/dK GEMM (dS and P read once); K4
+    alone, with its own dS/P launch, is timed beside it. Returns {key:
+    {shape: stats}} for the JSON rows."""
     stats = {"K2r": {}, "K4": {}, "K5": {}}
     for bh, n, m, d in shapes:
         scale = d**-0.5
@@ -949,23 +1004,34 @@ def time_train_kernels(gen, shapes):
         sdpa_bwd, sdpa_bwd_dev = time_ms(bwd), device_ms(bwd)
         del kept, bwd
         lse_b = 4 * bh * n
-        ws_b = 4 * bh * n * PA.ds_pitch(m) if d > 128 else 0  # K5's dS, written and read
+        ws_b = 2 * bh * n * PA.ds_pitch(m)  # one bf16 workspace, written or read once
         io = lambda *sizes: 2 * sum(bh * x * d for x in sizes)  # bf16 operands
         exps = float(bh * n * m)  # one exp2 a score, in the forward and in each backward kernel
+        dkv = lambda: PA.flash_bwd_dkv(q, k, v, lse, do, di, scale)
+        dq = lambda: PA.flash_bwd_dq(q, k, v, lse, do, di, scale)
+        k4 = (8.0 * bh * n * m * d, io(n, m, m, n, m, m) + 2 * lse_b)
+        k5 = (6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b)
+        if d > 128:  # the split backward, as flash_attention_bwd runs it
+            ws = tuple(torch.empty((bh, n, PA.ds_pitch(m)), dtype=torch.bfloat16, device="cuda")
+                       for _ in range(2))
+            dq = lambda: PA.flash_bwd_dq(q, k, v, lse, do, di, scale, workspace=ws[0],
+                                         p_workspace=ws[1])
+            dq()
+            dkv = lambda: PA.flash_bwd_dkv(q, k, v, lse, do, di, scale, workspaces=ws)
+            k4 = (4.0 * bh * n * m * d, io(n, m, m) + 2 * ws_b)  # q, do in; dk, dv out
+            k5 = (6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b + 3 * ws_b)
         rows = {
             "K2r": (lambda: PA.flash_attention_fwd(q, k, v, scale),
                     lambda: PA.flash_attention_fwd_plain(q, k, v, scale),
                     4.0 * bh * n * m * d, io(n, m, m, n) + lse_b, sdpa_fwd),
-            "K4": (lambda: PA.flash_bwd_dkv(q, k, v, lse, do, di, scale),
-                   lambda: PA.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale),
-                   8.0 * bh * n * m * d, io(n, m, m, n, m, m) + 2 * lse_b, sdpa_bwd),
-            "K5": (lambda: PA.flash_bwd_dq(q, k, v, lse, do, di, scale),
-                   lambda: PA.flash_bwd_dq_plain(q, k, v, lse, do, di, scale),
-                   6.0 * bh * n * m * d, io(n, m, m, n, n) + 2 * lse_b + ws_b, sdpa_bwd),
+            "K4": (dkv, lambda: PA.flash_bwd_dkv_plain(q, k, v, lse, do, di, scale), *k4,
+                   sdpa_bwd),
+            "K5": (dq, lambda: PA.flash_bwd_dq_plain(q, k, v, lse, do, di, scale), *k5,
+                   sdpa_bwd),
         }
         for key, (kern, plain, ops, nbytes, lib) in rows.items():
             ms, plain_ms = time_ms(kern), time_ms(plain)
-            b, by = bound_ms(nbytes, ops, "bf16", exps)
+            b, by = bound_ms(nbytes, ops, "bf16", 0.0 if key == "K4" and d > 128 else exps)
             stats[key][(bh, n, m, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
                                              bound_ms=b, ops=ops, bytes=nbytes, exps=exps)
             fb = ""
@@ -978,7 +1044,13 @@ def time_train_kernels(gen, shapes):
                   f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
                   f"{'forward' if key == 'K2r' else 'backward alone'} {lib:.4f} ms{fb}, "
                   f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
-        del q, k, v, do, o, lse, di, qg, kg, vg
+        if d > 128:  # K4 alone: its own dS/P launch, then the GEMM
+            alone = time_ms(lambda: PA.flash_bwd_dkv(q, k, v, lse, do, di, scale))
+            stats["K4"][(bh, n, m, d)]["alone_ms"] = alone
+            print(f"  K4 bf16 alone (its own dS/P launch, then the GEMM): {alone:.4f} ms",
+                  flush=True)
+            del ws
+        del q, k, v, do, o, lse, di, qg, kg, vg, dq, dkv
         torch.cuda.empty_cache()
     return stats
 
@@ -1193,8 +1265,9 @@ def full_loss_plan(recon, batch: int) -> dict:
     (one forward, no backward), and the first and last pred_x0 (under the
     towers' checkpoint: forward twice, K4 and K5 once). The two VAE encodes
     run without gradients through K2. No K1, no K3. The plan counts wrapper
-    calls: bf16 K5 at d=512 is one flash_bwd_dq call of two launches (dS,
-    then dQ = dS K)."""
+    calls: at d=512 flash_attention_bwd makes one flash_bwd_dq call of two
+    launches (dS and P, then dQ = dS K: K5's row owns the shared dS/P
+    launch) and one flash_bwd_dkv call of one (dV and dK from them)."""
     passes = 1 + recon.ddim_steps
     unet = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
     wide = (batch, 4096, 4096, 512)
@@ -1437,11 +1510,13 @@ def main():
                                (3, 200, 200, 80), (2, 1024, 1024, 8)] + K1_WIDE_SHAPES, gen),
         "K2": check_attention("K2", wide_attention, k2_shapes,
                               [(1, 4096, 4096, 512), (2, 1000, 1100, 512),
-                               (2, 1000, 1100, 256), (8, 1000, 1100, 40),
-                               (4, 1000, 1100, 80)], gen),
+                               (2, 1000, 1100, 256), (2, 1000, 1100, 160),
+                               (8, 1000, 1100, 40), (4, 1000, 1100, 80)], gen),
         "K3": check_groupnorm(k3_shapes, gen),
     }
     entries["K1"]["d160"] = time_k1_wide(gen)
+    entries["K1"]["d160"]["unet_1024_launches"] = {
+        str(k): v for k, v in unet_forward_1024(swapper, cfg).items()}
 
     print(f"phase 3: the main path, SwapConfig() at {cfg.image_size} px, DDIM-"
           f"{cfg.ddim_steps}, CFG {cfg.cfg_scale}, dedup, {REQUESTS} requests of "
@@ -1462,10 +1537,14 @@ def main():
     train_worst = check_train_kernels(gen, TRAIN_SHAPES + RAGGED_SHAPES)
     train_stats = time_train_kernels(gen, TRAIN_SHAPES)
     print("  the same kernels at the VAE decoder's head width, d = 512 (the split-depth "
-          "bf16 forward of attention_fwd_sm90.cuh, K4 of attention_flash_bwd_wide.cu, bf16 "
-          "K5 of attention_bwd_wide_sm90.cuh), and at d = 256", flush=True)
+          "bf16 forward of attention_fwd_sm90.cuh, bf16 K4 and K5 of "
+          "attention_bwd_wide_sm90.cuh), and at d = 256", flush=True)
     wide_worst = check_train_kernels(gen, WIDE_SHAPES)
     wide_stats = time_train_kernels(gen, WIDE_SHAPES[1:2])
+    print("  the same kernels at a 1024 px UNet's d = 160, padded to 256 by the wrappers",
+          flush=True)
+    d160_worst = check_train_kernels(gen, D160_SHAPES)
+    d160_stats = time_train_kernels(gen, D160_SHAPES[:1])
 
     print(f"phase 7: the eps-MSE training step, SwapConfig() at {cfg.image_size} px, "
           f"batch {TRAIN_BATCH}, {TRAIN_STEPS} steps", flush=True)
@@ -1545,7 +1624,7 @@ def main():
     # the same three kernels at d = 512, on the full-loss path (phase 8)
     for key, (name, _, repl, idx, lib_what) in train_meta.items():
         src = {"K2r": "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
-               "K4": "reface_tpu_torch/csrc/attention_flash_bwd_wide.cu",
+               "K4": "reface_tpu_torch/csrc/attention_bwd_wide_sm90.cuh",
                "K5": "reface_tpu_torch/csrc/attention_bwd_wide_sm90.cuh"}[key]
         per_step = {sh: c for sh, c in full_per_step[name].items() if sh[3] == 512}
         total = collections.Counter()
@@ -1565,7 +1644,13 @@ def main():
                      "library": lib_what, "tol": TOL[key]["bf16"],
                      "max_abs_err_fp32": w["fp32"], "rel_l2_err": w["rel"], **fwd_bwd(total),
                      "work": f"one full-loss step at batch {full_batch}: "
-                             + ", ".join(f"{c}x(BH,N,M,D)={sh}" for sh, c in per_step.items())})
+                             + ", ".join(f"{c}x(BH,N,M,D)={sh}" for sh, c in per_step.items()),
+                     "d160": {"shape": D160_SHAPES[0], "max_abs_err": d160_worst[key]["bf16"],
+                              "rel_l2_err": d160_worst[key]["rel"],
+                              **d160_stats[key][D160_SHAPES[0]]}})
+        if key == "K4":
+            rows[-1]["alone_ms"] = total["alone_ms"]
+            rows[-1]["shared_ds_launch"] = "counted in flash_bwd_dq_d512 (K5's call runs it)"
     for row, wide_row, idx in zip(rows[3:6], rows[6:9], (3, 4, 5)):  # K2r, K4, K5
         row["launches_full_loss_path"] = full_launches[idx] - wide_row["launches"]
     steady = lat[1:] or lat

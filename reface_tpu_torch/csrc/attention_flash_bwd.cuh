@@ -10,7 +10,8 @@ namespace reface {
 // --- per-warp products in the mma m16n8k16 fragment layout -----------------
 // Thread (g = lane / 4, t = lane % 4) holds, for n-tile j of 8 columns,
 // acc[j][0..1] at row g, columns 8j + 2t, 8j + 2t + 1, and acc[j][2..3] at
-// row g + 8.
+// row g + 8. fp32 only, in scalar FMAs: bf16 runs the Hopper kernels
+// (attention_bwd_sm90.cuh, attention_bwd_wide_sm90.cuh).
 
 // acc[j] += A B^T over a depth of kw (a multiple of 16): A is this warp's 16
 // rows, row-major at `a` (stride lda); B is stored n-major at `b` (row c of b
@@ -19,31 +20,19 @@ template <typename T, int NJ>
 __device__ __forceinline__ void mma_ss(float (&acc)[NJ][4], const T* a, int lda,
                                        const T* b, int ldb, int kw, int nj,
                                        int g, int t) {
+  static_assert(sizeof(T) == 4, "fp32 only");
   for (int kk = 0; kk < kw; kk += 16) {
-    if constexpr (sizeof(T) == 2) {
-      const T* ap = a + g * lda + kk + 2 * t;
-      const uint32_t a0 = ld_u32(ap), a1 = ld_u32(ap + 8 * lda);
-      const uint32_t a2 = ld_u32(ap + 8), a3 = ld_u32(ap + 8 * lda + 8);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-          const T* bp = b + (j * 8 + g) * ldb + kk + 2 * t;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld_u32(bp), ld_u32(bp + 8));
-        }
-      }
-    } else {
+    for (int j = 0; j < NJ; ++j) {
+      if (j < nj) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
+        for (int e = 0; e < 4; ++e) {
+          const T* ar = a + (g + 8 * (e >> 1)) * lda + kk;
+          const T* br = b + (j * 8 + 2 * t + (e & 1)) * ldb + kk;
+          float s = acc[j][e];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const T* ar = a + (g + 8 * (e >> 1)) * lda + kk;
-            const T* br = b + (j * 8 + 2 * t + (e & 1)) * ldb + kk;
-            float s = acc[j][e];
-#pragma unroll
-            for (int x = 0; x < 16; ++x) s = fmaf(to_f(ar[x]), to_f(br[x]), s);
-            acc[j][e] = s;
-          }
+          for (int x = 0; x < 16; ++x) s = fmaf(to_f(ar[x]), to_f(br[x]), s);
+          acc[j][e] = s;
         }
       }
     }
@@ -51,52 +40,36 @@ __device__ __forceinline__ void mma_ss(float (&acc)[NJ][4], const T* a, int lda,
 }
 
 // acc[j] += P B^T over a depth of kBN: P is this warp's 16 x 64 tile held in
-// registers (p[8][4], fragment layout), rounded to T for the product; B is
-// stored n-major at `b` (stride ldb). fp32 passes P through the warp's
-// 16 x (kBN + 4) scratch rows in shared memory.
+// registers (p[8][4], fragment layout), passed through the warp's
+// 16 x (kBN + 4) scratch rows in shared memory; B is stored n-major at `b`
+// (stride ldb).
 template <typename T, int NJ>
 __device__ __forceinline__ void mma_rs(float (&acc)[NJ][4], const float (&p)[8][4],
                                        float* scratch, const T* b, int ldb,
                                        int nj, int g, int t) {
-  if constexpr (sizeof(T) == 2) {
+  static_assert(sizeof(T) == 4, "fp32 only");
+  constexpr int ss = kBN + 4;
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-          const T* bp = b + (j * 8 + g) * ldb + kk * 16 + 2 * t;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld_u32(bp), ld_u32(bp + 8));
-        }
-      }
-    }
-  } else {
-    constexpr int ss = kBN + 4;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        scratch[(g + 8 * (e >> 1)) * ss + j * 8 + 2 * t + (e & 1)] = p[j][e];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (j < nj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* pr = scratch + (g + 8 * (e >> 1)) * ss;
-          const T* br = b + (j * 8 + 2 * t + (e & 1)) * ldb;
-          float s = acc[j][e];
-          for (int x = 0; x < kBN; ++x) s = fmaf(pr[x], to_f(br[x]), s);
-          acc[j][e] = s;
-        }
-      }
-    }
-    __syncwarp();
+    for (int e = 0; e < 4; ++e)
+      scratch[(g + 8 * (e >> 1)) * ss + j * 8 + 2 * t + (e & 1)] = p[j][e];
   }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j < nj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* pr = scratch + (g + 8 * (e >> 1)) * ss;
+        const T* br = b + (j * 8 + 2 * t + (e & 1)) * ldb;
+        float s = acc[j][e];
+        for (int x = 0; x < kBN; ++x) s = fmaf(pr[x], to_f(br[x]), s);
+        acc[j][e] = s;
+      }
+    }
+  }
+  __syncwarp();
 }
 
 // --- tile staging ------------------------------------------------------------
@@ -141,8 +114,7 @@ template <typename T>
 inline size_t bwd_smem_bytes(int d, int rows, int trans, int stats) {
   size_t b = ((size_t)rows * kBM * row_stride<T>(d) + (size_t)trans * d * t_stride<T>()) * sizeof(T)
              + (size_t)stats * kBM * sizeof(float);
-  if (sizeof(T) == 4) b += (size_t)kWarps * 16 * (kBN + 4) * sizeof(float);
-  return b;
+  return b + (size_t)kWarps * 16 * (kBN + 4) * sizeof(float);
 }
 
 }  // namespace reface

@@ -1,6 +1,8 @@
 // K4 (dK, dV) and K5 (dQ) for wide heads, D > 128: the flash-attention
 // backward of the VAE decoder's mid-block attention (one head of d=512 over
-// 4096 tokens), which the full training loss differentiates through.
+// 4096 tokens), which the full training loss differentiates through, and of
+// any head the flash path pads to a multiple of 128 (ops/attention.py pads
+// d = 160 to 256, as the JAX package's _flash_attention does).
 //
 // Replaces: the same two library kernels as attention_flash_bwd.cu
 // (jax/experimental/pallas/ops/tpu/flash_attention.py in jax 0.9.0, K4
@@ -8,36 +10,31 @@
 // _flash_attention_bwd_dq :1287 / :1456), at the shape
 // reface_tpu/nn/vae.py:98 gives them: (B, 1, 4096, 512).
 //
-// Bound on the card: operations. At (BH, N, M, D) = (4, 4096, 4096, 512) K4 is
-// 8*N*M*D*BH = 275 GFLOP (0.278 ms at the bf16 peak) and K5 6*N*M*D*BH =
-// 206 GFLOP (0.208 ms) against ~100 MB of operands and results (K5 in bf16
-// adds its dS workspace, 2 x 128 MiB written and read).
+// Bound on the card: operations. bf16 runs each product once: S, dP, dQ, dV
+// and dK, 10 BH N M D = 344 GFLOP at (4,4096,4096,512) (0.347 ms at the
+// bf16 peak), with 5 x 128 MiB of workspace traffic below it (0.20 ms).
 //
 // Dispatch, by dtype, never as a fallback:
-//   K5, bf16 -> attention_bwd_wide_sm90.cuh: dS into a (BH, N, Mp) bf16
-//     workspace that the caller allocates, then dQ = dS K, two wgmma/TMA
-//     kernels that run every product once (no bf16 instance of
-//     flash_bwd_dq_wide_kernel is built);
-//   K4 in both dtypes and K5 in fp32 -> the sliced kernels below.
+//   bf16 -> attention_bwd_wide_sm90.cuh's three wgmma/TMA kernels:
+//     reface_flash_bwd_ds_wide writes dS (and P) rounded to bf16 into
+//     (BH, N, Mp) workspaces that the caller allocates; reface_flash_bwd_dq_wide
+//     (dQ = dS K) and reface_flash_bwd_dkv_wide (dV = P^T dO, dK = dS^T Q)
+//     read them. No bf16 instance of the sliced kernels below is built;
+//   fp32 -> the sliced kernels below, which take no workspace.
 //
-// Design of the sliced kernels. A 64-row fp32 tile of dK and dV (or dQ) over
-// all 512 columns is 128 KB a tile, more than a block's registers (256 KB for
-// the whole SM), and the D <= 128 kernels' resident K/V (or Q/dO) tiles would
-// not fit its shared memory beside the streamed ones. So the head dimension
-// is split across blocks: a block owns one 64-row tile and one 128-column
-// slice of the result (grid.y = D / 128). It recomputes S = Q K^T and
-// dP = dO V^T over the full depth, streaming all four operands through
-// shared memory in 128-column chunks, and runs the products that feed its
-// slice (dV += P^T dO, dK += dS^T Q, or dQ += dS K) against the slice's 128
-// columns only, staged transposed once per tile. Nothing is resident: K and
-// V (K4) or Q and dO (K5) are re-read from L2 for every tile of the other
-// sequence. The recomputation costs (2*512 + 2*128) / (4*128) = 2.5x the
-// products for K4 and (2*512 + 128) / (3*128) = 3x for K5; it keeps the
-// register tile of the D = 128 instance, needs no atomics (one block writes
-// each element once: deterministic), and gives the grid 4x the blocks. bf16
-// K4 runs its products with mma.sync m16n8k16, fp32 with scalar FMAs in
-// full fp32. Numerics and masking of the ragged edges are those of
-// attention_flash_bwd.cu.
+// Design of the sliced fp32 kernels. A 64-row fp32 tile of dK and dV (or
+// dQ) over all 512 columns is 128 KB a tile, more than a block's registers
+// (256 KB for the whole SM), and the D <= 128 kernels' resident K/V (or
+// Q/dO) tiles would not fit its shared memory beside the streamed ones. So
+// the head dimension is split across blocks: a block owns one 64-row tile
+// and one 128-column slice of the result (grid.y = D / 128). It recomputes
+// S = Q K^T and dP = dO V^T over the full depth, streaming all four
+// operands through shared memory in 128-column chunks, and runs the
+// products that feed its slice (dV += P^T dO, dK += dS^T Q, or dQ += dS K)
+// against the slice's 128 columns only, staged transposed once per tile:
+// 2.5x the products for K4 and 3x for K5, in scalar FMAs in full fp32, no
+// atomics (one block writes each element once: deterministic). Numerics
+// and masking of the ragged edges are those of attention_flash_bwd.cu.
 #include "attention_bwd_wide_sm90.cuh"
 #include "attention_flash_bwd.cuh"
 
@@ -305,38 +302,57 @@ inline int launch_dq_wide(const void* q, const void* k, const void* v,
 }  // namespace reface
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the results); lse and
-// di are fp32 (BH, N). D must be a multiple of 128; batch*heads at most 65535.
+// di are fp32 (BH, N). D must be a multiple of 128; batch*heads at most
+// 65535. The bf16 workspaces are (BH, N, ws_pitch) contiguous with ws_pitch
+// = M rounded up to 8, allocated by the caller: ws holds dS and ws_p holds
+// P; fp32 takes nullptr for both.
+
+namespace {
+
+bool wide_ok(int d, int bh) { return d > 0 && d % reface::kKC == 0 && bh <= 65535; }
+
+}  // namespace
+
+// bf16 only: dS into ws and, when ws_p is not nullptr, P into ws_p.
+extern "C" int reface_flash_bwd_ds_wide(const void* q, const void* k, const void* v,
+                                        const void* lse, const void* dout, const void* di,
+                                        void* ws, void* ws_p, int ws_pitch, int bh, int n, int m,
+                                        int d, float scale, void* stream) {
+  if (!wide_ok(d, bh)) return (int)cudaErrorInvalidValue;
+  return reface::sm90::wide::flash_bwd_ds_bf16(q, k, v, lse, dout, di, ws, ws_p, ws_pitch, bh, n,
+                                               m, d, scale, static_cast<cudaStream_t>(stream));
+}
+
+// bf16: dK = dS^T Q and dV = P^T dO from the filled workspaces (q, dout);
+// fp32: the sliced kernel from the operands.
 extern "C" int reface_flash_bwd_dkv_wide(const void* q, const void* k,
                                          const void* v, const void* lse,
                                          const void* dout, const void* di,
-                                         void* dk, void* dv, int bh, int n,
-                                         int m, int d, float scale, int dtype,
+                                         void* dk, void* dv, void* ws, void* ws_p, int ws_pitch,
+                                         int bh, int n, int m, int d, float scale, int dtype,
                                          void* stream) {
-  if (d <= 0 || d % reface::kKC != 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (!wide_ok(d, bh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return reface::launch_dkv_wide<__nv_bfloat16>(q, k, v, lse, dout, di, dk, dv,
-                                                  bh, n, m, d, scale, s);
-  if (dtype == 0)
+    return reface::sm90::wide::flash_bwd_dkv_gemm_bf16(q, dout, dk, dv, ws, ws_p, ws_pitch, bh,
+                                                       n, m, d, s);
+  if (dtype == 0 && ws == nullptr && ws_p == nullptr)
     return reface::launch_dkv_wide<float>(q, k, v, lse, dout, di, dk, dv, bh, n,
                                           m, d, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// ws: the bf16 dS workspace that bf16 K5 writes and reads, (BH, N, ws_pitch)
-// contiguous with ws_pitch = M rounded up to 8; the caller allocates it
-// (fp32 takes nullptr).
+// bf16: dQ = dS K from the filled dS workspace (k); fp32: the sliced kernel.
 extern "C" int reface_flash_bwd_dq_wide(const void* q, const void* k,
                                         const void* v, const void* lse,
                                         const void* dout, const void* di,
                                         void* dq, void* ws, int ws_pitch, int bh, int n,
                                         int m, int d, float scale, int dtype, void* stream) {
-  if (d <= 0 || d % reface::kKC != 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (!wide_ok(d, bh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return reface::sm90::wide::flash_bwd_dq_wide_bf16(q, k, v, lse, dout, di, dq, ws, ws_pitch,
-                                                      bh, n, m, d, scale, s);
-  if (dtype == 0)
+    return reface::sm90::wide::flash_bwd_dq_gemm_bf16(k, dq, ws, ws_pitch, bh, n, m, d, s);
+  if (dtype == 0 && ws == nullptr)
     return reface::launch_dq_wide<float>(q, k, v, lse, dout, di, dq, bh, n, m,
                                          d, scale, s);
   return (int)cudaErrorInvalidValue;

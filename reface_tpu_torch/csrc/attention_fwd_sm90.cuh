@@ -1,11 +1,11 @@
 // Hopper attention forward for bf16: K2 (attention_wide.cu's
 // reface_wide_attention), K2 with residuals (reface_flash_attention_fwd,
-// which also writes one log-sum-exp per query row) and, at D <= 128, K1
-// (attention_smalld.cu's reface_smalld_attention, with K1's own rules below).
+// which also writes one log-sum-exp per query row) and K1 (attention_smalld.cu's
+// reface_smalld_attention, with K1's own rules below, at every D it takes).
 // fp32 calls do not come here: they run the scalar attn_fwd_kernel of
 // attention_common.cuh, which the card's fp32 checks hold tightly to the
-// plain version. The dispatch is by dtype (and for K1 by D) in the two .cu
-// files; a bf16 call at D <= 128 never reaches the old kernel.
+// plain version. The dispatch is by dtype in the two .cu files; no bf16 call
+// reaches the old kernel.
 //
 // Replaces: jax/experimental/pallas/ops/tpu/flash_attention.py:758
 // (_flash_attention_impl, the library kernel that reface_tpu/ops/attention.py
@@ -28,11 +28,16 @@
 //     p = exp2(s * scale * log2e - shift) in fp32, never rescaled. p may
 //     pass 1 beyond the first 256 keys: fp32 and bf16 have ~2^127 of
 //     headroom. The shift comes from a prologue that runs QK^T over the
-//     first 256 keys (two key tiles) for their max alone, and the main loop
-//     computes those scores again: 6% more QK^T at N = 4096, 25% at 1024.
-//     Keeping tile 0's 64 score registers until tile 1's max is known would
-//     need 64 more registers a thread at D = 80 (acc 64 + two score tiles
-//     128), past the 168 that ptxas grants.
+//     first 256 keys for their max alone, and the main loop computes those
+//     scores again: 6% more QK^T at N = 4096, 25% at 1024. Keeping tile 0's
+//     64 score registers until tile 1's max is known would need 64 more
+//     registers a thread at D = 80 (acc 64 + two score tiles 128), past the
+//     168 that ptxas grants. At D <= 128 the ring's stages hold those keys
+//     (two 128-key tiles) and the main loop finds them loaded; at
+//     128 < D <= 256 they do not fit (kReload): the producer streams K's
+//     first 256 keys through the ring once for the prologue alone (V's
+//     barrier completes that use empty), and the main loop loads them again
+//     from L2: 12.5% more K and V traffic at N = 1024.
 //   a rounded sum: the row sum takes p *rounded to bf16*, in fp32, as the TPU
 //     kernel's ones-column of V does (attention_smalld.py:55-63): the packed
 //     bf16 pairs of the PV operand are widened back (a shift and a mask) and
@@ -71,6 +76,19 @@
 // 168 a thread that __launch_bounds__(384, 1) allows. The D <= 384
 // instances fit; D = 512 (128 accumulator registers) spills a little and
 // ptxas serialises its wgmmas (its "C7512" note, printed by chip_smoke.py).
+//
+// K1 at 128 < D <= 256 (a 1024 px UNet's d = 160, at 1024 tokens), 64-key
+// tiles, 3 stages. D <= 192: the same unsplit shape, 64 query rows a
+// warpgroup and the full depth in three 64-column boxes (TMA zero-fills
+// 160..191 at d = 160): accumulator 96 registers, scores 32, P 16; 192 KB
+// of shared memory. 192 < D <= 256: a 64 x 256 accumulator (128 registers)
+// beside a score tile does not fit 168 registers (ptxas spills and
+// serialises the wgmmas), so the two warpgroups share one 64-row tile as K2
+// does (kSplit), each accumulating half of the output's columns (64
+// registers), but each runs QK^T over the full depth instead of exchanging
+// partial scores: both hold the same scores bit for bit, so the prologue's
+// max needs no exchange either. That runs QK^T twice (1.5x the products),
+// at a width no model of the repo uses; 224 KB of shared memory.
 //
 // D <= 128 (the UNet's 40 and 80): the FlashAttention-3 shape. Each consumer
 // warpgroup owns 64 query rows of a 128-row tile and the full depth; key
@@ -223,14 +241,17 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
 
 // ------------------------------------------------------------ configuration
 
-// kDp: the head dim as the boxes hold it (64, 128, 256, 384 or 512); kKS:
-// the 16-deep k-steps of QK^T each consumer warpgroup runs; kBN: keys per
-// tile; kSplit: the two consumer warpgroups split the depth of one 64-row
-// tile (D > 128) instead of owning 64 rows each. The ring is as deep as
-// shared memory allows: 4 stages at kDp = 64, 3 at 128, 2 when split.
-template <int kDp, int kKS, int kBN, bool kSplit>
+// kDp: the head dim as the boxes hold it (64, 128, 192, 256, 384 or 512);
+// kKS: the 16-deep k-steps of QK^T each consumer warpgroup runs; kBN: keys
+// per tile; kSplit: the two consumer warpgroups share one 64-row tile, each
+// owning half of the output's depth, instead of owning 64 rows each; K2
+// splits QK^T's depth too and exchanges the partial scores (kExchange), K1
+// (kSmalld) runs it over the full depth in both. The ring is as deep as
+// shared memory allows: 4 stages at kDp = 64, 2 when K2 splits, else 3.
+template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld = false>
 struct Cfg {
-  static constexpr int kStages = kSplit ? 2 : (kDp == 64 ? 4 : 3);
+  static constexpr bool kExchange = kSplit && !kSmalld;
+  static constexpr int kStages = kExchange ? 2 : (kDp == 64 ? 4 : 3);
   static constexpr int kRowsQ = kSplit ? 64 : 128;
   static constexpr int kBoxes = kDp / 64;            // 64-column (128-byte) boxes
   static constexpr int kQBox = kRowsQ * 128;         // bytes of one Q box
@@ -241,7 +262,7 @@ struct Cfg {
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKVBytes;
   static constexpr int kXOff = kVOff + kStages * kKVBytes;
-  static constexpr int kXBytes = kSplit ? 2 * 2 * 64 * kBN * 4 : 0;
+  static constexpr int kXBytes = kExchange ? 2 * 2 * 64 * kBN * 4 : 0;
   // mbarriers: Q full, then per stage K full, V full, empty
   static constexpr int kBarOff = kXOff + kXBytes;
   static constexpr int kQFull = kBarOff;
@@ -250,7 +271,7 @@ struct Cfg {
   static constexpr int kEmpty = kVFull + 8 * kStages;
   static constexpr int kSmem = kEmpty + 8 * kStages + 1024;  // + alignment slack
   static_assert(kDp % 64 == 0 && kBN % 16 == 0, "tile shapes");
-  static_assert(kSplit ? kKS * 32 == kDp : (kKS * 16 <= kDp && kKS * 16 > kDp - 64), "k-steps");
+  static_assert(kExchange ? kKS * 32 == kDp : (kKS * 16 <= kDp && kKS * 16 > kDp - 64), "k-steps");
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
@@ -261,13 +282,16 @@ struct Cfg {
 // Shared memory is addressed by 32-bit shared-window offsets from `base`.
 template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld>
 struct Consumer {
-  using C = Cfg<kDp, kKS, kBN, kSplit>;
+  using C = Cfg<kDp, kKS, kBN, kSplit, kSmalld>;
   static constexpr int kS = kBN / 2;     // score registers a thread
   static constexpr int kO = C::kNO / 2;  // accumulator registers a thread
-  static_assert(!kSmalld || (!kSplit && kShiftKeys % kBN == 0), "K1 runs unsplit tiles");
+  static_assert(!kSmalld || kShiftKeys % kBN == 0, "K1's prologue runs whole key tiles");
+  // K1's prologue tiles do not fit the ring: they are loaded twice
+  static constexpr bool kReload = kSmalld && C::kStages * kBN < kShiftKeys;
 
-  uint32_t base, q_addr, kv_off;  // kv_off: this warpgroup's first depth box in a K/V tile
+  uint32_t base, q_addr, k_off, v_off;  // this warpgroup's first depth box in a K, V tile
   int wg, t, tq, m;  // t: the thread's index in its warpgroup
+  int t0;            // loads of the ring before key tile 0's (kReload: the prologue's)
   float scale_log2;
   float acc[kO];
   float m_run[2], l_run[2];  // the running max (K1: the fixed shift); this thread's share of the row sum
@@ -276,11 +300,11 @@ struct Consumer {
 
   // S_j = Q K_j^T over this warpgroup's depth: issued and committed, not waited for
   __device__ __forceinline__ void issue_scores(int j) {
-    const int s = j % C::kStages;
-    const uint32_t k_addr = base + C::kKOff + s * C::kKVBytes + kv_off;
+    const int s = (t0 + j) % C::kStages;
+    const uint32_t k_addr = base + C::kKOff + s * C::kKVBytes + k_off;
 #pragma unroll
     for (int i = 0; i < kS; ++i) sc[i] = 0.f;
-    mbar_wait(base + C::kKFull + 8 * s, (j / C::kStages) & 1);
+    mbar_wait(base + C::kKFull + 8 * s, ((t0 + j) / C::kStages) & 1);
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < kKS; ++ks) {
@@ -293,9 +317,9 @@ struct Consumer {
 
   // O += P_j V_j: issued and committed, not waited for
   __device__ __forceinline__ void issue_pv(int j) {
-    const int s = j % C::kStages;
-    const uint32_t v_addr = base + C::kVOff + s * C::kKVBytes + kv_off;
-    mbar_wait(base + C::kVFull + 8 * s, (j / C::kStages) & 1);
+    const int s = (t0 + j) % C::kStages;
+    const uint32_t v_addr = base + C::kVOff + s * C::kKVBytes + v_off;
+    mbar_wait(base + C::kVFull + 8 * s, ((t0 + j) / C::kStages) & 1);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
@@ -317,7 +341,9 @@ struct Consumer {
 
   // K1: m_run = each row's shift, the max of its scaled scores over
   // the first min(kShiftKeys, M) keys, or 0 when `fast`. QK^T runs over those
-  // key tiles for their max alone; their stages stay loaded for the main loop.
+  // key tiles for their max alone; their stages stay loaded for the main
+  // loop, or under kReload are freed at once and the main loop's loads
+  // follow in the ring.
   __device__ __forceinline__ void fixed_shift(int fast) {
     m_run[0] = m_run[1] = 0.f;
     if (fast) return;
@@ -334,7 +360,12 @@ struct Consumer {
         for (int r = 0; r < 2; ++r)
           mx[r] = fmaxf(mx[r], fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
       }
+      if constexpr (kReload) {
+        __syncwarp();
+        if ((t & 31) == 0) mbar_arrive(base + C::kEmpty + 8 * (j % C::kStages));
+      }
     }
+    if constexpr (kReload) t0 = tiles;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -348,7 +379,7 @@ struct Consumer {
   // The library's rule: a new running max, the accumulator rescaled, the
   // fp32 p summed. K1's: the fixed shift, p summed as rounded.
   __device__ __forceinline__ void softmax(int j) {
-    if constexpr (kSplit) {  // add the other warpgroup's half of the depth
+    if constexpr (C::kExchange) {  // add the other warpgroup's half of the depth
       const uint32_t xb = base + C::kXOff + (j & 1) * 2 * 64 * kBN * 4;
       const uint32_t mine = xb + (wg * 64 * kBN + t) * 4;
       const uint32_t other = xb + ((1 - wg) * 64 * kBN + t) * 4;
@@ -417,7 +448,7 @@ template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld>
 __device__ __forceinline__ void consume(uint32_t base, __nv_bfloat16* __restrict__ o,
                                         float* __restrict__ lse, int n, int m, int d,
                                         float scale_log2, int fast) {
-  using C = Cfg<kDp, kKS, kBN, kSplit>;
+  using C = Cfg<kDp, kKS, kBN, kSplit, kSmalld>;
   constexpr int kO = C::kNO / 2;
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
@@ -427,22 +458,25 @@ __device__ __forceinline__ void consume(uint32_t base, __nv_bfloat16* __restrict
   w.base = base;
   // where this warpgroup's Q rows and depth, and its K and V depth, begin
   const int box0 = kSplit ? wg * (C::kBoxes / 2) : 0;
-  w.q_addr = base + box0 * C::kQBox + (kSplit ? 0 : wg * 64 * 128);
-  w.kv_off = box0 * C::kKVBox;
+  const int qk_box0 = C::kExchange ? box0 : 0;
+  w.q_addr = base + qk_box0 * C::kQBox + (kSplit ? 0 : wg * 64 * 128);
+  w.k_off = qk_box0 * C::kKVBox;
+  w.v_off = box0 * C::kKVBox;
   w.wg = wg;
   w.t = tid & 127;
   w.tq = lane & 3;
   w.m = m;
+  w.t0 = 0;
   w.scale_log2 = scale_log2;
 #pragma unroll
   for (int i = 0; i < kO; ++i) w.acc[i] = 0.f;
   w.m_run[0] = w.m_run[1] = -INFINITY;
   w.l_run[0] = w.l_run[1] = 0.f;
 
-  // D <= 128: the two warpgroups take turns to issue their products (named
+  // Unsplit: the two warpgroups take turns to issue their products (named
   // barrier 2 + wg is this warpgroup's turn, FlashAttention-3's ping-pong),
   // so that one's softmax runs while the other's wgmmas are in flight. Split
-  // D runs them in step instead: they meet at the exchange of every tile.
+  // K2 runs them in step instead: they meet at the exchange of every tile.
   auto turn_wait = [&] {
     if constexpr (!kSplit) asm volatile("bar.sync %0, 256;\n" ::"r"(2 + wg) : "memory");
   };
@@ -466,7 +500,7 @@ __device__ __forceinline__ void consume(uint32_t base, __nv_bfloat16* __restrict
     wg_wait<0>();
     fence_regs(w.acc);
     __syncwarp();
-    if (lane == 0) mbar_arrive(base + C::kEmpty + 8 * (j % C::kStages));  // stage j is free
+    if (lane == 0) mbar_arrive(base + C::kEmpty + 8 * ((w.t0 + j) % C::kStages));  // tile j's stage is free
   }
 
   // epilogue: o = acc / l in bf16; lse once per row
@@ -499,7 +533,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
               float* __restrict__ lse, int n, int m, int d, float scale_log2, int fast) {
-  using C = Cfg<kDp, kKS, kBN, kSplit>;
+  using C = Cfg<kDp, kKS, kBN, kSplit, kSmalld>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms are 1024-aligned
 
@@ -519,16 +553,23 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     if (threadIdx.x == kProducer) {
       const int q0 = blockIdx.x * C::kRowsQ, bh = blockIdx.y;
       const int ntiles = (m + kBN - 1) / kBN;
+      // K1 under kReload: the prologue's K tiles first, then every tile's K and V
+      const int pro = (Consumer<kDp, kKS, kBN, kSplit, kSmalld>::kReload && !fast)
+                          ? min(kShiftKeys / kBN, ntiles) : 0;
       mbar_expect_tx(base + C::kQFull, C::kQBytes);
       for (int c = 0; c < C::kBoxes; ++c)
         tma_load_3d(base + c * C::kQBox, &tq, base + C::kQFull, c * 64, q0, bh);
-      for (int j = 0; j < ntiles; ++j) {
-        const int s = j % C::kStages;
-        mbar_wait(base + C::kEmpty + 8 * s, ((j / C::kStages) & 1) ^ 1);
+      for (int t = 0; t < pro + ntiles; ++t) {
+        const int s = t % C::kStages, j = t < pro ? t : t - pro;
+        mbar_wait(base + C::kEmpty + 8 * s, ((t / C::kStages) & 1) ^ 1);
         mbar_expect_tx(base + C::kKFull + 8 * s, C::kKVBytes);
         for (int c = 0; c < C::kBoxes; ++c)
           tma_load_3d(base + C::kKOff + s * C::kKVBytes + c * C::kKVBox, &tk,
                       base + C::kKFull + 8 * s, c * 64, j * kBN, bh);
+        if (t < pro) {  // the prologue reads K alone
+          mbar_arrive(base + C::kVFull + 8 * s);
+          continue;
+        }
         mbar_expect_tx(base + C::kVFull + 8 * s, C::kKVBytes);
         for (int c = 0; c < C::kBoxes; ++c)
           tma_load_3d(base + C::kVOff + s * C::kKVBytes + c * C::kKVBox, &tv,
@@ -586,7 +627,7 @@ inline int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, 
 template <int kDp, int kKS, int kBN, bool kSplit, bool kSmalld = false>
 inline int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int n,
                   int m, int d, float scale_log2, cudaStream_t stream, int fast = 0) {
-  using C = Cfg<kDp, kKS, kBN, kSplit>;
+  using C = Cfg<kDp, kKS, kBN, kSplit, kSmalld>;
   CUtensorMap tq, tk, tv;
   int rc = make_map(&tq, q, d, n, bh, C::kRowsQ);
   if (rc == 0) rc = make_map(&tk, k, d, m, bh, kBN);

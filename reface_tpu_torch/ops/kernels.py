@@ -50,7 +50,8 @@ _SIGNATURES = {
         "reface_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     },
     "attention_flash_bwd_wide": {
-        "reface_flash_bwd_dkv_wide": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "reface_flash_bwd_ds_wide": [_P] * 8 + [_I] * 5 + [_F, _P],
+        "reface_flash_bwd_dkv_wide": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
         "reface_flash_bwd_dq_wide": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     },
     "groupnorm": {

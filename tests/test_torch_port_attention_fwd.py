@@ -11,7 +11,14 @@ the same (global) row max, and the outputs differ only by fp32 summation
 order before the final bf16 rounding: at most one bf16 ulp of the largest
 |o|. A kernel that rounded p before the row sum (K1's rule) would also
 pass at this size, which is why chip_smoke.py holds the CUDA kernel to this
-plain version at one ulp on 4096-key inputs.
+plain version at one ulp on 4096-key inputs. At d = 160 the library runs
+the head zero-padded to 256 (the JAX _flash_attention pads every head to a
+multiple of 128), and the plain version takes the real width.
+
+The card runs a head above 128 that is not a multiple of 128 zero-padded
+as the JAX package does (PA.pad_head_dim), with the scale of the real
+width, and slices the results: in fp32 that is the plain version at the
+real width.
 """
 
 import functools
@@ -20,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
 from reface_tpu.ops.attention import _flash_attention as j_flash
@@ -38,7 +46,7 @@ def _ulp_bf16(x: np.ndarray) -> float:
     return float(2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7))
 
 
-@pytest.mark.parametrize("d", [40, 512])
+@pytest.mark.parametrize("d", [40, 160, 512])
 def test_k2_plain_matches_library_forward_bf16(interpret_pallas, d):
     """(B, H, N, M) = (1, 2, 128, 256), bf16 inputs from a numpy seed."""
     rng = np.random.default_rng(100 + d)
@@ -55,3 +63,32 @@ def test_k2_plain_matches_library_forward_bf16(interpret_pallas, d):
     got = o.float().numpy().reshape(ref.shape)
     err = np.abs(got - ref).max()
     assert err <= _ulp_bf16(ref), (err, _ulp_bf16(ref))
+
+
+@pytest.mark.parametrize("what", ["forward", "backward"])
+def test_padding_keeps_the_function(what):
+    """(BH, N, M, D) = (2, 96, 100, 160), fp32: pad_head_dim (to 256), the
+    plain forward (o, lse) or backward (dq, dk, dv) at the real width's
+    scale, then sliced back to 160, against the plain version at 160."""
+    rng = np.random.default_rng(700)
+    q, do = (torch.from_numpy(rng.normal(size=(2, 96, 160)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 100, 160)).astype(np.float32))
+            for _ in range(2))
+    scale = 160**-0.5
+    padded = PA.pad_head_dim(q, k, v, do)
+    assert PA.padded_head_dim(160) == 256 and all(t.shape[-1] == 256 for t in padded)
+    assert all(torch.equal(t[..., :160], u) and not t[..., 160:].any()
+               for t, u in zip(padded, (q, k, v, do)))
+    if what == "forward":
+        want = PA.flash_attention_fwd_plain(q, k, v, scale)
+        got = PA.flash_attention_fwd_plain(*padded[:3], scale)
+        got = (got[0][..., :160], got[1])
+    else:
+        o, lse = PA.flash_attention_fwd_plain(q, k, v, scale)
+        want = PA.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        po = F.pad(o, (0, 96))
+        got = tuple(g[..., :160] for g in PA.flash_attention_bwd_plain(
+            *padded[:3], po, lse, padded[3], scale))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-6, rtol=0)

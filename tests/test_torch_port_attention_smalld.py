@@ -5,8 +5,8 @@
   run in interpret mode as tests/test_attention_smalld.py runs it, in both
   TPU layouts ("nn", "tn") and both modes (the first-256-key shift, and
   `fast` without one). N = 512, so the shift covers only half of the keys.
-  d = 160 is the width the card runs on its mma.sync instance (a 1024 px
-  input's 1024 tokens), d = 40 and 80 on its Hopper kernel.
+  d = 40, 80 and 160 (a 1024 px input's 1024 tokens) all run the card's
+  Hopper kernel, d = 160 at its 192-column instance.
   Both sides take fp32 scores, round p = exp2(s - shift) to bf16 and sum the
   rounded p (the kernel's ones-column) and the PV product in fp32; they
   differ by fp32 summation order and the division before the final bf16
@@ -25,8 +25,15 @@
   round dS to bf16 for the dQ product (the library's ds.astype(k.dtype))
   and store bf16; at most one bf16 ulp of the largest |dq|. d = 40 and 80
   are the UNet's widths (the card's Hopper kernel); d = 256 is a width of
-  the wide path (two kernels on the card: dS rounded to bf16 into a
-  workspace, then dQ = dS K), whose function is the same.
+  the wide path (on the card dS and P rounded to bf16 into workspaces, then
+  dQ = dS K and dK, dV as GEMMs), whose function is the same; d = 160 is a
+  1024 px UNet's, which the library pads to 256 (the JAX _flash_attention
+  pads every head to a multiple of 128) and the port's plain versions take
+  at the real width.
+- The workspaces: flash_bwd_ds_plain's dS and P, rounded to bf16 as the
+  card stores them, fed to the backward products give
+  flash_attention_bwd_plain's dq, dk and dv bit for bit, so the split at dS
+  changes no value.
 """
 
 import functools
@@ -121,7 +128,7 @@ def _library_bwd(seed: int, d: int):
     return (tq, tk, tv, tlse, tdo, PA.row_dot(to, tdo)), refs
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 def test_k4_plain_matches_library_bwd_bf16(interpret_pallas, d):
     """dK and dV of jax.vjp through the library flash_attention against
     flash_bwd_dkv_plain on the library's own o and lse."""
@@ -133,7 +140,7 @@ def test_k4_plain_matches_library_bwd_bf16(interpret_pallas, d):
         assert err <= _ulp_bf16(ref), (name, err, _ulp_bf16(ref))
 
 
-@pytest.mark.parametrize("d", [40, 80, 256])
+@pytest.mark.parametrize("d", [40, 80, 160, 256])
 def test_k5_plain_matches_library_bwd_bf16(interpret_pallas, d):
     """dQ of jax.vjp through the library flash_attention against
     flash_bwd_dq_plain on the library's own o and lse."""
@@ -142,3 +149,23 @@ def test_k5_plain_matches_library_bwd_bf16(interpret_pallas, d):
     assert dq.dtype == torch.bfloat16
     err = np.abs(dq.float().numpy() - dq_ref).max()
     assert err <= _ulp_bf16(dq_ref), (err, _ulp_bf16(dq_ref))
+
+
+def test_workspaces_feed_the_backward_bit_for_bit():
+    """(BH, N, M, D) = (2, 96, 100, 256), bf16: the dS and P workspaces of
+    flash_bwd_ds_plain ((BH, N, ds_pitch(M)), 0 at the 4 padding keys), fed
+    to the products, give flash_attention_bwd_plain's dq, dk and dv exactly."""
+    rng = np.random.default_rng(600)
+    q, do = (_bf16_t(rng.normal(size=(2, 96, 256)).astype(np.float32)) for _ in range(2))
+    k, v = (_bf16_t(rng.normal(size=(2, 100, 256)).astype(np.float32)) for _ in range(2))
+    scale = 256**-0.5
+    o, lse = PA.flash_attention_fwd_plain(q, k, v, scale)
+    ds, p = PA.flash_bwd_ds_plain(q, k, v, lse, do, PA.row_dot(o, do), scale)
+    assert ds.shape == p.shape == (2, 96, PA.ds_pitch(100)) == (2, 96, 104)
+    assert ds.dtype == p.dtype == torch.bfloat16
+    assert not ds[..., 100:].any() and not p[..., 100:].any()
+    ds, p = ds[..., :100], p[..., :100]
+    want = PA.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    got = (PA._dq(q, k, ds),) + PA._dkv(q, k, v, do, p, ds)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(g, w), name

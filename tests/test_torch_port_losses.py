@@ -310,7 +310,8 @@ def test_flash_plain_matches_library_at_d512(interpret_pallas):
 def test_flash_wrappers_take_wide_heads():
     """On the CPU the wrappers compute their plain versions at d = 512 as at
     any width, and FlashAttention differentiates; the operand check takes
-    d = 512 and refuses widths the sliced kernels do not cut."""
+    d = 512 and the widths the wrappers pad to a multiple of 128 (136, 160),
+    and refuses what no kernel runs: D above 512 or not a multiple of 8."""
     rng = np.random.default_rng(11)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(1, n, 512)).astype(np.float32))
                    for n in (70, 90, 90, 70))
@@ -322,8 +323,9 @@ def test_flash_wrappers_take_wide_heads():
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=2e-6, rtol=0)
     meta = lambda d: torch.zeros(1, 128, d, device="meta")
-    for d in (136, 640, 1024):
+    for d in (164, 640, 1024):
         with pytest.raises(ValueError, match="multiple of"):
             PA._check_flash("flash", meta(d), meta(d), meta(d))
-    with pytest.raises(ValueError, match="CUDA"):  # the width itself is taken
-        PA._check_flash("flash", meta(512), meta(512), meta(512))
+    for d in (136, 160, 512):
+        with pytest.raises(ValueError, match="CUDA"):  # the width itself is taken
+            PA._check_flash("flash", meta(d), meta(d), meta(d))

@@ -45,12 +45,12 @@ def test_landmark_aux_head_matches_jax():
     assert_close(head(nchw(feats)), ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_unet_return_features_matches_jax(remat):
-    """return_features: eps and every decoder block's activation within 2e-4
-    (the towers' tolerance), also under remat with gradients recorded; the
-    shapes are those decoder_feature_shapes reads from the config."""
-    jcfg, pcfg = j_tiny(64).unet, p_tiny(64).unet
+@pytest.fixture(scope="module")
+def unet_features_ref():
+    """The JAX UNet of tiny_swap_config(64), its inputs, and its eps and
+    decoder features (return_features=True): the reference of both remat
+    cases, built once."""
+    jcfg = j_tiny(64).unet
     rng = np.random.default_rng(4)
     x9 = rng.normal(size=(2, 8, 8, 9)).astype(np.float32)
     t = np.array([3, 700], np.int32)
@@ -58,6 +58,16 @@ def test_unet_return_features_matches_jax(remat):
     params = init_jax(JUNet(jcfg), jnp.asarray(x9), jnp.asarray(t), jnp.asarray(ctx), seed=5)
     ref, ref_feats = JUNet(jcfg).apply(params, jnp.asarray(x9), jnp.asarray(t),
                                        jnp.asarray(ctx), return_features=True)
+    return params, (x9, t, ctx), ref, ref_feats
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_unet_return_features_matches_jax(unet_features_ref, remat):
+    """return_features: eps and every decoder block's activation within 2e-4
+    (the towers' tolerance), also under remat with gradients recorded; the
+    shapes are those decoder_feature_shapes reads from the config."""
+    pcfg = p_tiny(64).unet
+    params, (x9, t, ctx), ref, ref_feats = unet_features_ref
     net = UNetModel(dataclasses.replace(pcfg, remat=remat), device="cpu")
     net.load_state_dict(from_jax.unet_from_jax(params))
     with torch.set_grad_enabled(remat):

@@ -141,7 +141,17 @@ def _port_grads(params, batch, draws, train_cfg=PT.TrainConfig()):
     return loss, PT.named_params(state.modules)
 
 
-def test_eps_step_matches_jax(tiny):
+@pytest.fixture(scope="module")
+def port_grads(tiny):
+    """The port's loss and gradients of the tiny step under the default
+    TrainConfig (UNet remat on), from the JAX draws of `tiny`'s key: read
+    by the JAX comparison and the remat check, computed once."""
+    _, params, batch, key = tiny
+    draws = _jax_draws(key, 2, 8, JT.TrainConfig())
+    return _port_grads(from_jax.swap_from_jax(params), batch, draws)
+
+
+def test_eps_step_matches_jax(tiny, port_grads):
     """Loss within 1e-5 relative and each trainable gradient within 1e-4
     relative L2 of jax.value_and_grad of the JAX loss_fn (fp32 both sides;
     conv and matmul summation orders differ, and the gradients pass through
@@ -156,8 +166,7 @@ def test_eps_step_matches_jax(tiny):
     _, j_loss_fn, _ = JT.make_train_step(jcfg, JT.TrainConfig())
     (j_loss, _), j_grads = jax.jit(jax.value_and_grad(j_loss_fn, has_aux=True))(
         params, batch, key)
-    draws = _jax_draws(key, 2, 8, JT.TrainConfig())
-    loss, named = _port_grads(from_jax.swap_from_jax(params), batch, draws)
+    loss, named = port_grads
     assert abs(loss.item() / float(j_loss) - 1) < 1e-5
 
     ref = {f"{tower}.{k}": v.numpy() for tower, sd in
@@ -181,15 +190,14 @@ def test_eps_step_matches_jax(tiny):
     assert unused < 0.1 * len(named)
 
 
-def test_remat_keeps_the_gradients(tiny):
+def test_remat_keeps_the_gradients(tiny, port_grads):
     """The UNet's torch.utils.checkpoint remat recomputes the same values:
     the gradients with and without it agree (2e-6 relative L2; fp32 on the
     CPU recomputes the same products)."""
     _, params, batch, key = tiny
     draws = _jax_draws(key, 2, 8, JT.TrainConfig())
-    p = from_jax.swap_from_jax(params)
-    loss_r, with_remat = _port_grads(p, batch, draws)
-    loss_n, without = _port_grads(p, batch, draws,
+    loss_r, with_remat = port_grads
+    loss_n, without = _port_grads(from_jax.swap_from_jax(params), batch, draws,
                                   PT.TrainConfig(force_unet_remat=False))
     assert loss_r.item() == loss_n.item()
     for name, a in with_remat.items():
