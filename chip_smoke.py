@@ -17,7 +17,10 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      instance of the attention forward, K1's included at every width, of K4
      and K5 at D <= 128 and of the three d > 128 backward kernels must hold
      wgmma and TMA instructions, HGMMA and UTMALDG, and no bf16 mma.sync
-     instance of the old kernels they replace may be left to reach);
+     instance of the old kernels they replace may be left to reach; every
+     K3 instance must wait at the cluster barrier, UCGABAR, the resident
+     ones bring their slice in with the bulk copy, UBLKCP, and the two
+     kernels of K3's first, two-launch design may not be left);
   2. kernels: K1 (UNet self-attention), K2 (VAE mid-block attention) and K3
      (GroupNorm+SiLU) against their plain PyTorch versions at every shape the
      survey found, K1 also at ragged and tiny shapes and at 128 < D <= 256
@@ -27,14 +30,18 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      the TPU kernel's own function (smalld_attention_plain, both modes, one
      bf16 ulp), bf16 K2 against the library's function
      (flash_attention_fwd_plain, one bf16 ulp) and bit-equal to the residual
-     forward; each timed with CUDA events beside its bound (bytes, tensor
-     operations or exp2s), its plain version and one PyTorch library call;
+     forward; K3 also at a tiny shape and at groups too large for a
+     cluster's shared memory, into NaN-filled outputs, two calls bit-equal;
+     each timed with CUDA events beside its bound (bytes, tensor
+     operations or exp2s), its plain version and one PyTorch library call,
+     K3 also by the profiler's device time and the host's enqueue per call;
   3. the main path: 512 px, DDIM-50, CFG 3, CFG prefix dedup, 2 requests of
      batch 2 through FaceSwapper.swap; checks the output and the kernels'
      launch counts;
   4. bf16 against fp32: the UNet (unfused, and UNetConfig(fused_groupnorm=
      True) through K3), the VAE and the conditioner, each at full width
-     against an fp32 copy with the same weights;
+     against an fp32 copy with the same weights; the fused forward profiled,
+     one K3 kernel a call;
   5. a small input against a reference: the 256 px tiny config in fp32 on the
      card (K1, K2 and K3 all launched) against the port on the CPU, where
      every kernel wrapper computes its plain version;
@@ -74,7 +81,9 @@ exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -97,7 +106,7 @@ from reface_tpu_torch.ops.attention_smalld import (
     self_attention_smalld,
     smalld_attention_plain,
 )
-from reface_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+from reface_tpu_torch.ops.groupnorm import cluster_plan, group_norm_silu, group_norm_silu_plain
 from reface_tpu_torch.pipelines.swap import (
     FaceSwapper,
     SwapConfig,
@@ -166,6 +175,13 @@ K1_PLAN_1024 = {40: 5, 80: 5, 160: 5}
 # conditioner 7.2e-4 (its output is mostly the fp32 ID projection).
 TOWER_TOL = {"UNet": 3e-2, "UNet fused": 3e-2, "VAE encode": 3e-2,
              "VAE decode": 3e-2, "conditioner": 2e-3}
+# K3 beyond the fused UNet's shapes, in both dtypes: a tiny tensor (one CTA
+# a group), and groups too large for a cluster's shared memory in fp32
+# ((2,960,128,128): a fused UNet at 1024 px; in bf16 it stays resident, 8
+# CTAs of 120 KB) and in both dtypes ((1,128,512,512): the VAE decoder's
+# 512 x 512 level), which take the streaming path. (2,1280,8,8) (one CTA)
+# and (2,960,64,64) (a full cluster of 8) are among the fused UNet's.
+K3_EXTRA_SHAPES = ((1, 32, 8, 8), (2, 960, 128, 128), (1, 128, 512, 512))
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 KERNELS = (self_attention_smalld, wide_attention, group_norm_silu,
            PA.flash_attention_fwd, PA.flash_bwd_dkv, PA.flash_bwd_dq)
@@ -270,6 +286,36 @@ def device_ms(fn, calls: int = 5) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / calls
 
 
+def device_ms_each(fns: dict, calls: int = 5) -> dict:
+    """device_ms of each of several functions from one profiler session (a
+    session for each would make dozens): each runs `calls` times inside a
+    record_function scope of its own name, ending in a synchronise. The
+    profiler marks each scope on the device's timeline too; a function's
+    time is the summed durations of the kernels inside its mark, per call
+    (the mark's own length would count the gaps between kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in fns.items():
+            with record_function(name):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = {e.name: e.time_range for e in on_device if e.name in fns}
+    kernels_ = [e.time_range for e in on_device if e.name not in fns]
+    out = {name: sum(k.elapsed_us() for k in kernels_ if name in marks
+                     and marks[name].start <= k.start and k.end <= marks[name].end)
+           / 1e3 / calls for name in fns}
+    if not all(out.values()):
+        fail(f"the profiler saw no kernel in {[n for n, v in out.items() if not v]}")
+    return out
+
+
 def bound_ms(nbytes: float, ops: float, kind: str, exps: float = 0.0):
     """Least time for the work: the largest of bytes over the HBM rate, ops
     over the peak for `kind`, and exp2 evaluations over EXP_PER_S."""
@@ -303,7 +349,10 @@ def short_name(mangled: str) -> str:
     if m is None:  # not a template
         m = re.search(r"([a-z_]+_sm90)E", mangled)
         return mangled if m is None else m.group(1)
-    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+    args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+    if "nv_bfloat16" in m.group(2) or m.group(2).startswith("f"):  # a type first (K3)
+        args.insert(0, "bf16" if "nv_bfloat16" in m.group(2) else "fp32")
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def sass_functions(name: str) -> dict:
@@ -333,6 +382,13 @@ SASS_OLD_BF16 = {
 }
 
 
+# K3's instructions, as cuobjdump names them: every instance waits at the
+# cluster barrier; the resident ones (template argument 1) bring their slice
+# in with the bulk copy. The two kernels of K3's first design may not be left.
+SASS_K3 = {"cluster barrier": "UCGABAR", "bulk copy": "UBLKCP"}
+SASS_K3_OLD = ("gn_partial", "gn_apply")
+
+
 def check_sass():
     """The Hopper kernels' instructions. Every bf16 instance of the attention
     forward (attn_fwd_sm90: K2 and K2r in attention_wide, K1 at every width
@@ -342,7 +398,8 @@ def check_sass():
     flash_bwd_dq_gemm_sm90, flash_bwd_dkv_gemm_sm90 in
     attention_flash_bwd_wide) runs wgmma (HGMMA) and TMA loads (UTMALDG);
     no bf16 instance of the old mma.sync kernels (HMMA) is left for them to
-    reach (SASS_OLD_BF16)."""
+    reach (SASS_OLD_BF16). K3's instances hold SASS_K3, and SASS_K3_OLD are
+    gone."""
     for lib, hopper in SASS_HOPPER.items():
         funcs = sass_functions(lib)
         for new_name in hopper:
@@ -360,6 +417,16 @@ def check_sass():
                   f"{len(old_bf16)} (allowed 0)", flush=True)
             if old_bf16:
                 fail(f"{lib}: the old bf16 kernel {old_name} is still there to reach")
+    funcs = sass_functions("groupnorm")
+    k3 = {short_name(n): {what: f.count(op) for what, op in SASS_K3.items()}
+          for n, f in funcs.items() if "group_norm_sm90" in n}
+    print(f"  SASS of groupnorm: {len(k3)} group_norm_sm90 instances, counts of "
+          f"{SASS_K3}: {k3}", flush=True)
+    if len(k3) != 4 or any(not c["cluster barrier"] or (k.endswith(",1>") and not c["bulk copy"])
+                           for k, c in k3.items()):
+        fail("groupnorm: a K3 instance lacks the cluster barrier or, resident, the bulk copy")
+    if any(old in n for n in funcs for old in SASS_K3_OLD):
+        fail("groupnorm: a kernel of K3's two-launch design is still there")
 
 
 # ------------------------------------------------------------------ survey
@@ -579,50 +646,112 @@ def unet_forward_1024(swapper, cfg: SwapConfig):
     return dict(shapes)
 
 
+def host_us(fn, calls: int = 300) -> float:
+    """The host's time to enqueue one call of fn(), in microseconds: `calls`
+    calls back to back without a synchronise, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+@contextlib.contextmanager
+def nan_filled_outputs():
+    """Inside, torch.empty_like (where a kernel wrapper allocates its output)
+    fills with NaN: an output element the kernel never writes then shows."""
+    empty_like = torch.empty_like
+    torch.empty_like = functools.partial(torch.full_like, fill_value=float("nan"))
+    try:
+        yield
+    finally:
+        torch.empty_like = empty_like
+
+
+def group_norm_silu_library(x, scale, bias):
+    """K3's function in PyTorch's library calls (the yardstick; bf16 affine)."""
+    return F.silu(F.group_norm(x, 32, scale, bias, 1e-5))
+
+
 def check_groupnorm(shapes, gen):
     """K3 against group_norm_silu_plain at each (B,C,H,W) of the fused UNet
-    forward (eps 1e-5, SiLU), plus eps 1e-6 without SiLU; bf16 times."""
+    forward and at K3_EXTRA_SHAPES, fp32 and bf16, eps 1e-5 with SiLU and
+    1e-6 without. Each call writes into an output filled with NaN first (an
+    element the kernel never writes fails the check), and a second call on
+    the same input must give the same bits (the cluster's merge has a fixed
+    order). Each shape is timed in bf16 three ways: CUDA events over
+    back-to-back calls (host enqueue included), the profiler's device time,
+    and the host's enqueue per call; beside them the bound, the plain
+    version and F.group_norm + F.silu (events and device time)."""
     worst = {"fp32": 0.0, "bf16": 0.0, "rel": 0.0}
     total = collections.Counter()
-    for shape, count in shapes.items():
+    per_shape, timed = [], {}
+    for shape in list(shapes) + [sh for sh in K3_EXTRA_SHAPES if sh not in shapes]:
         c = shape[1]
         scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
         bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
         for kind, dt in DTYPES.items():
             x = (2.0 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dt)
             for eps, silu in ((1e-5, True), (1e-6, False)):
-                out = group_norm_silu(x, scale, bias, 32, eps, silu)
+                with nan_filled_outputs():
+                    out = group_norm_silu(x, scale, bias, 32, eps, silu)
+                    again = group_norm_silu(x, scale, bias, 32, eps, silu)
                 torch.cuda.synchronize()
                 ref = group_norm_silu_plain(x, scale, bias, 32, eps, silu)
                 err, rel, ok = within("K3", kind, out, ref, dt)
                 if not ok:
                     fail(f"K3 disagrees with its plain version at {shape} {kind} "
                          f"eps={eps} silu={silu}: {err:.3e}, rel L2 {rel:.3e}")
+                if not torch.equal(out, again):
+                    fail(f"K3's two calls at {shape} {kind} eps={eps} silu={silu} differ")
                 worst[kind] = max(worst[kind], err)
                 if kind == "bf16":
                     worst["rel"] = max(worst["rel"], rel)
         x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
-        ms = time_ms(lambda: group_norm_silu(x, scale, bias, 32, 1e-5, True))
-        plain = time_ms(lambda: group_norm_silu_plain(x, scale, bias, 32, 1e-5, True))
-        sb, bb = scale.to(x.dtype), bias.to(x.dtype)
-        lib = time_ms(lambda: F.silu(F.group_norm(x, 32, sb, bb, 1e-5)))
-        nbytes = 2 * x.numel() * 2 + 2 * c * 4
-        ops = 10.0 * x.numel()  # stats, normalise, affine, SiLU: fp32 outside the tensor cores
-        b, by = bound_ms(nbytes, ops, "fp32")
-        print(f"  K3 bf16 (B,C,H,W)={shape} x{count}: kernel {ms:.4f} ms, bound "
-              f"{b:.4f} ms ({by}), plain {plain:.4f} ms, group_norm+silu {lib:.4f} ms, "
-              f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", b), ("ops", ops), ("bytes", nbytes)):
+        run = functools.partial(group_norm_silu, x, scale, bias, 32, 1e-5, True)
+        lib = functools.partial(group_norm_silu_library, x, scale.to(x.dtype), bias.to(x.dtype))
+        timed[shape] = ({"ms": time_ms(run), "host_us": host_us(run),
+                         "plain_ms": time_ms(functools.partial(
+                             group_norm_silu_plain, x, scale, bias, 32, 1e-5, True)),
+                         "library_ms": time_ms(lib)}, run, lib)
+    dev = device_ms_each({f"{fn} {shape}": f for shape, (_, run, lib) in timed.items()
+                          for fn, f in (("K3", run), ("library", lib))})
+    for shape, (t, _, _) in timed.items():
+        count, c, numel = shapes.get(shape, 0), shape[1], math.prod(shape)
+        t["device_ms"], t["library_device_ms"] = dev[f"K3 {shape}"], dev[f"library {shape}"]
+        nbytes = 2 * numel * 2 + 2 * c * 4
+        ops = 10.0 * numel  # stats, normalise, affine, SiLU: fp32 outside the tensor cores
+        t["bound_ms"], by = bound_ms(nbytes, ops, "fp32")
+        n, sl, resident = cluster_plan(c // 32 * shape[2] * shape[3], 2)
+        print(f"  K3 bf16 (B,C,H,W)={shape} x{count}: cluster {n} x {sl} "
+              f"({'resident' if resident else 'streaming'}); events {t['ms']:.4f} ms, "
+              f"device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us a call; bound "
+              f"{t['bound_ms']:.4f} ms ({by}); plain {t['plain_ms']:.4f} ms; group_norm+silu "
+              f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f}); "
+              f"{nbytes / t['device_ms'] / 1e6:.0f} GB/s of device time", flush=True)
+        per_shape.append({"shape": shape, "count": count, "cluster": n, "slice": sl,
+                          "resident": resident, **t})
+        for key, val in (*t.items(), ("ops", ops), ("bytes", nbytes), ("calls", 1)):
             total[key] += count * val
     print(f"  K3 max_abs_err fp32 {worst['fp32']:.3e} (tol {TOL['K3']['fp32']:.0e}), "
           f"bf16 {worst['bf16']:.3e} (tol {TOL['K3']['bf16']:.3e}), bf16 rel L2 "
-          f"{worst['rel']:.3e} (tol {REL_TOL_BF16:.0e}) ok", flush=True)
+          f"{worst['rel']:.3e} (tol {REL_TOL_BF16:.0e}), NaN-filled outputs, two calls "
+          f"bit-equal ok", flush=True)
+    print(f"  K3 per fused forward ({total['calls']} calls): events {total['ms']:.4f} ms, "
+          f"device {total['device_ms']:.4f} ms, host {total['host_us'] / 1e3:.4f} ms; bound "
+          f"{total['bound_ms']:.4f} ms; plain {total['plain_ms']:.4f} ms; group_norm+silu "
+          f"{total['library_ms']:.4f} ms (device {total['library_device_ms']:.4f})", flush=True)
     _, by = bound_ms(total["bytes"], total["ops"], "fp32")
     return {"max_abs_err": worst["bf16"], "max_abs_err_fp32": worst["fp32"],
-            "rel_l2_err": worst["rel"], "tol": TOL["K3"]["bf16"], "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"], "bound_by": by,
-            "library_ms": total["library_ms"]}
+            "rel_l2_err": worst["rel"], "tol": TOL["K3"]["bf16"], "ms": total["ms"],
+            "device_ms": total["device_ms"],
+            "host_us_per_call": total["host_us"] / total["calls"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"], "bound_by": by,
+            "library_ms": total["library_ms"],
+            "library_device_ms": total["library_device_ms"], "per_shape": per_shape}
 
 
 # ------------------------------------------------------------------ phases 3-5
@@ -714,7 +843,8 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
     """torch.profiler over one call: the device kernels' time by kind and
     the longest kernels. The profiler slows the host, so the share of the
     call's time the device was busy is taken against an unprofiled run.
-    grad=True runs fn with autograd on (a training step)."""
+    grad=True runs fn with autograd on (a training step). Returns the
+    kernel launches by kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -732,7 +862,7 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and dev(e) > 0),
                   key=dev, reverse=True)
-    kinds = collections.Counter()
+    kinds, launches = collections.Counter(), collections.Counter()
     for e in rows:
         name = e.key
         kind = ("K2/K2r d=512 attn_fwd_sm90" if "attn_fwd_sm90<512" in name else
@@ -743,11 +873,12 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
                     w in name for w in ("flash_bwd_ds_sm90", "flash_bwd_dq_gemm_sm90")) else
                 "K4 flash_bwd_dkv" if "flash_bwd_dkv" in name else
                 "K5 flash_bwd_dq" if "flash_bwd_dq" in name else
-                "K3 gn_" if "gn_partial" in name or "gn_apply" in name else
+                "K3 group_norm_sm90" if "group_norm_sm90" in name else
                 "cuDNN NCHW<->NHWC" if "nchwToNhwc" in name or "nhwcToNchw" in name else
                 "conv/gemm" if any(w in name for w in ("conv", "gemm", "sm90", "xmma", "cutlass", "dgrad", "implicit")) else
                 "other")
         kinds[kind] += dev(e)
+        launches[kind] += e.count
     busy = sum(kinds.values())
     print(f"  profile of that {what}: device kernels {busy:.2f} ms against "
           f"{wall:.2f} ms wall unprofiled ({100 * busy / wall:.1f}% busy), "
@@ -755,6 +886,7 @@ def profile_forward(fn, top: int = 8, what: str = "forward", grad: bool = False)
           + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.most_common()), flush=True)
     for e in rows[:top]:
         print(f"    {dev(e):8.3f} ms {e.count:5d}x  {e.key[:90]}", flush=True)
+    return launches
 
 
 def fp32_copy(module, cls, config):
@@ -767,8 +899,9 @@ def fp32_copy(module, cls, config):
 def towers_vs_fp32(swapper, cfg: SwapConfig, k3_per_forward: int):
     """Each bf16 tower against an fp32 copy with the same weights, at full
     width: the UNet unfused and fused (K3), the VAE encoder (posterior mean)
-    and decoder (fed the same latent), the conditioner. Returns the fused
-    forward's K3 launches."""
+    and decoder (fed the same latent), the conditioner. The fused forward is
+    profiled too: the profiler must count one K3 kernel a call. Returns the
+    fused forward's K3 launches."""
     f32 = torch.float32
     rp = dataclasses.replace
     cond = cfg.conditioner
@@ -811,6 +944,13 @@ def towers_vs_fp32(swapper, cfg: SwapConfig, k3_per_forward: int):
             bad.append(name)
     if k3 != k3_per_forward:
         fail(f"K3 launched {k3} times in the fused forward, expected {k3_per_forward}")
+    profiled = profile_forward(lambda: fused(x9, t, ctx), what="fused forward")
+    k3_kernels = profiled["K3 group_norm_sm90"]
+    print(f"  K3 kernels in the profiled fused forward: {k3_kernels} (planned "
+          f"{k3_per_forward}, one launch a call)", flush=True)
+    if k3_kernels != k3_per_forward:
+        fail(f"the profiler counted {k3_kernels} K3 kernels in the fused forward, "
+             f"expected {k3_per_forward}")
     if bad:
         fail(f"bf16 further from fp32 than the tolerance: {', '.join(bad)}")
     return k3
@@ -1585,6 +1725,8 @@ def main():
                      "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                      "tol": e["tol"], "max_abs_err_fp32": e["max_abs_err_fp32"],
                      "rel_l2_err": e["rel_l2_err"], "work": work})
+    rows[2].update({k: entries["K3"][k] for k in (
+        "device_ms", "host_us_per_call", "library_device_ms", "per_shape")})
     rows[0]["also_replaces"] = "reface_tpu/ops/attention_smalld.py:141"
     rows[0]["max_abs_err_vs_smalld_attention_plain"] = entries["K1"][
         "max_abs_err_vs_smalld_attention_plain"]

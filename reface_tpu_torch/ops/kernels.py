@@ -55,8 +55,7 @@ _SIGNATURES = {
         "reface_flash_bwd_dq_wide": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     },
     "groupnorm": {
-        "reface_group_norm_partials": [_I, _I, _I],
-        "reface_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        "reface_group_norm": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     },
 }
 
