@@ -45,6 +45,22 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
   5. a small input against a reference: the 256 px tiny config in fp32 on the
      card (K1, K2 and K3 all launched) against the port on the CPU, where
      every kernel wrapper computes its plain version;
+  9. (run after phase 5) the swap's other serving modes at SwapConfig()'s
+     widths with phase 3's weights, batch 2, one warm-up and one timed
+     request each through FaceSwapper.swap: PLMS-50; DPM-Solver++(2M)-20 on
+     the lam_uniform grid, with and without cfg_steps=8; DDIM-50 with the
+     int8 and the int8conv modes (UNet fused GroupNorm, VAE, CLIP int8);
+     the distilled-student rung (DDIM-10, cfg 1.0, fast attention,
+     int8conv); 1024 px with VAE and UNet tiles (DDIM-10, depth cut from
+     50). Each output finite in [-1,1]; K1 and K2 launches by shape, K3
+     and the int8 products by count, against the plan from the config; K1
+     and K2 at the tiles' shapes against their plain versions; the card's
+     int8 product (torch._int_mm) bit-equal to its plain version at each
+     shape of an int8 UNet forward, the int8 UNet forwards against bf16;
+     each mode at the tiny fp32 config on the card against the CPU port
+     (int8 site by site); fold(unfold(x)) == x; per mode the latency,
+     swaps/s, peak memory and launches, and per int8 shape class the
+     _int_mm, int8-site and bf16 times;
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
      (32,1024,80), and ragged ones at d = 40 and 80), of the VAE decoder's
@@ -107,6 +123,8 @@ from reface_tpu_torch.ops.attention_smalld import (
     smalld_attention_plain,
 )
 from reface_tpu_torch.ops.groupnorm import cluster_plan, group_norm_silu, group_norm_silu_plain
+from reface_tpu_torch.ops import quant as PQ
+from reface_tpu_torch.parallel import tiling
 from reface_tpu_torch.pipelines.swap import (
     FaceSwapper,
     SwapConfig,
@@ -161,6 +179,8 @@ TOL = {
 }
 REL_TOL_BF16 = 1e-2
 K1_ULPS = K2_ULPS = 1
+# scores a plain attention computes at a time (by_heads)
+PLAIN_HEADS_SCORES = 2**29
 # bf16 K1 at 128 < D <= 256, one shape or more for each of its three Hopper
 # instances (QK^T 160, 192 and 256 deep): off the 512 px main path, reached
 # by a 1024 px input's 1024 tokens at d=160
@@ -185,6 +205,14 @@ K3_EXTRA_SHAPES = ((1, 32, 8, 8), (2, 960, 128, 128), (1, 128, 512, 512))
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 KERNELS = (self_attention_smalld, wide_attention, group_norm_silu,
            PA.flash_attention_fwd, PA.flash_bwd_dkv, PA.flash_bwd_dq)
+
+# Phase 9: the card's int8 product, restored after the check that swaps in
+# int_mm_plain. The full-width int8 UNet forward against the bf16 one with
+# the same weights, relative L2 (the JAX package holds one block to 5%
+# max-relative): seen 4.83e-2 (int8) and 4.73e-2 (int8conv) on the H100,
+# random weights; the limits are about twice that.
+KERNEL_INT_MM = PQ.int_mm
+INT8_TOL = {"int8": 0.1, "int8conv": 0.1}
 
 # Training (phases 6-7). The UNet's self-attention at batch 4: 8 heads of
 # d=40 over 4096 tokens and of d=80 over 1024, five of each per step.
@@ -493,11 +521,23 @@ def ulp_bf16(ref) -> float:
     return 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
 
 
+def by_heads(fn, q, k, v, *args):
+    """fn(q, k, v, *args) of a plain attention over (BH, N, D) operands,
+    PLAIN_HEADS_SCORES scores (2 GiB in fp32) at a time: the heads are
+    independent, and a tiled UNet's (288, 4096, 4096) scores would not fit
+    the card at once."""
+    step = max(1, PLAIN_HEADS_SCORES // (q.shape[1] * k.shape[1]))
+    if step >= q.shape[0]:
+        return fn(q, k, v, *args)
+    return torch.cat([fn(q[i: i + step], k[i: i + step], v[i: i + step], *args)
+                      for i in range(0, q.shape[0], step)])
+
+
 def check_k2_function(q, k, v, scale, out):
     """bf16 K2 against the library's function: flash_attention_fwd_plain's o
     within K2_ULPS bf16 ulps of the largest |o|, and bit-equal to the
     residual forward's o (one kernel serves both entry points)."""
-    ref = PA.flash_attention_fwd_plain(q, k, v, scale)[0]
+    ref = by_heads(lambda *a: PA.flash_attention_fwd_plain(*a)[0], q, k, v, scale)
     err = (out.float() - ref.float()).abs().max().item()
     lim = K2_ULPS * ulp_bf16(ref)
     same = torch.equal(out, PA.flash_attention_fwd(q, k, v, scale)[0])
@@ -513,7 +553,7 @@ def check_k1_function(q, k, v, scale, out, fast):
     bf16 ulps of the largest |o| of smalld_attention_plain (the fixed
     first-256-key shift, or none when fast; the row sum of the rounded p).
     Returns the error."""
-    ref = smalld_attention_plain(q, k, v, scale, fast)
+    ref = by_heads(smalld_attention_plain, q, k, v, scale, fast)
     err = (out.float() - ref.float()).abs().max().item()
     lim = K1_ULPS * ulp_bf16(ref)
     print(f"    K1 against smalld_attention_plain{' (fast)' if fast else ''}: max_abs_err "
@@ -541,7 +581,7 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
             q = torch.randn(bh, n, d, generator=gen, device="cuda").to(dt)
             k = torch.randn(bh, m, d, generator=gen, device="cuda").to(dt)
             v = torch.randn(bh, m, d, generator=gen, device="cuda").to(dt)
-            ref = einsum_attention(q, k, v, scale)
+            ref = by_heads(einsum_attention, q, k, v, scale)
             for fast in modes:
                 kw = {"fast": fast} if name == "K1" else {}
                 out = kernel(q, k, v, scale=scale, **kw)
@@ -563,7 +603,7 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
                 if name == "K2":
                     check_k2_function(q, k, v, scale, out)
                 tile = 64 if name == "K1" else fwd_key_tile(d)
-                dropped = einsum_attention(q, k[:, :-tile], v[:, :-tile], scale)
+                dropped = by_heads(einsum_attention, q, k[:, :-tile], v[:, :-tile], scale)
                 f_err, f_rel, passes = within(name, kind, dropped, ref, dt)
                 print(f"    the plain version with its last {tile}-key tile dropped: "
                       f"max_abs_err {f_err:.3e}, rel L2 {f_rel:.3e}: "
@@ -577,7 +617,7 @@ def check_attention(name, kernel, shapes, extra_shapes, gen):
         v = torch.randn(bh, m, d, generator=gen, device="cuda", dtype=torch.bfloat16)
         scale = d**-0.5
         ms = time_ms(lambda: kernel(q, k, v, scale=scale))
-        plain = time_ms(lambda: einsum_attention(q, k, v, scale))
+        plain = time_ms(lambda: by_heads(einsum_attention, q, k, v, scale))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale))
         nbytes = 2 * (2 * bh * n * d + 2 * bh * m * d)  # q, k, v in; o out
@@ -989,6 +1029,354 @@ def tiny_reference():
         fail("the tiny reference run did not reach every kernel")
     if not err <= 1e-3:
         fail("the card's tiny swap disagrees with the CPU port")
+
+
+# ------------------------------------------------------------------ phase 9
+
+def serving_mode_configs() -> dict:
+    """The swap's other serving modes at SwapConfig()'s widths (phase 9).
+    Depth cut: the 1024 px tiles run DDIM-10, not 50."""
+    base, rp = SwapConfig(), dataclasses.replace
+
+    def quant(cfg, unet, vae, clip, **unet_kw):
+        cond = cfg.conditioner
+        return rp(cfg, unet=rp(cfg.unet, quant=unet, **unet_kw), vae=rp(cfg.vae, quant=vae),
+                  conditioner=rp(cond, clip=rp(cond.clip, quant=clip)))
+
+    dpm = rp(base, sampler="dpm", ddim_steps=20, ddim_discretize="lam_uniform")
+    return {
+        "PLMS-50": rp(base, sampler="plms"),
+        "DPM-Solver++(2M)-20 lam_uniform": dpm,
+        "DPM-Solver++(2M)-20 lam_uniform cfg_steps=8": rp(dpm, cfg_steps=8),
+        "DDIM-50 int8 (--quant int8 --quant-cond)":
+            quant(base, "int8", "int8", "int8", fused_groupnorm=True),
+        "DDIM-50 int8conv (--quant int8conv --quant-cond)":
+            quant(base, "int8conv", "int8conv", "int8", fused_groupnorm=True),
+        "student DDIM-10 cfg 1.0 fast int8conv":
+            rp(quant(base, "int8conv", "none", "int8", attn_impl="fast"), ddim_steps=10,
+               cfg_scale=1.0),
+        "1024 px tiles DDIM-10": rp(base, image_size=1024, latent_size=128, vae_tile=64,
+                                    unet_tile=64, ddim_steps=10),
+    }
+
+
+def n_tiles(size: int, tile: int, stride: int) -> int:
+    """Tiles of parallel/tiling.py over a size x size input (1 untiled)."""
+    return len(tiling._starts(size, tile, stride)) ** 2 if tile and size > tile else 1
+
+
+def unet_forwards(cfg: SwapConfig, steps: int) -> collections.Counter:
+    """UNet forwards of one request by kind: "pair" (the CFG pair batch-
+    doubled, 2B rows), "dedup" (B rows, doubled at the first context read),
+    "cond" (the conditional half alone, B rows)."""
+    use_cfg = cfg.cfg_scale != 1.0
+    if cfg.sampler == "plms":  # one evaluation a step, two on step 0
+        return collections.Counter({"pair" if use_cfg else "cond": steps + 1})
+    n_cfg = (min(cfg.cfg_steps or steps, steps)) if use_cfg else 0
+    pair = "dedup" if cfg.cfg_dedup and not cfg.unet_tile else "pair"
+    return collections.Counter({pair: n_cfg, "cond": steps - n_cfg})
+
+
+def mode_plan(cfg: SwapConfig, steps: int, batch: int = BATCH) -> dict:
+    """Launches of one request, from the config: K1 by (BH, N, D) (each
+    self-attention of 512 tokens or more, in order: 2 x num_res_blocks + 1
+    SpatialTransformers at each attention level, the middle block's; under
+    the dedup the first runs at the half batch), K2 by (BH, N, M, D) (the
+    VAE encoder's and decoder's mid-block, over all VAE tiles in one call),
+    K3 (45 norms a fused forward)."""
+    u = cfg.unet
+    tiled = cfg.unet_tile and cfg.latent_size > cfg.unet_tile
+    lat = cfg.unet_tile if tiled else cfg.latent_size
+    t = n_tiles(cfg.latent_size, cfg.unet_tile, cfg.unet_tile_stride or cfg.unet_tile // 2)
+    levels = len(u.channel_mult)
+    attn = [(lat // 2**i, u.channel_mult[i], (2 * u.num_res_blocks + 1) * u.transformer_depth)
+            for i in range(levels) if 2**i in u.attention_resolutions]
+    attn.append((lat // 2 ** (levels - 1), u.channel_mult[-1], u.transformer_depth))  # middle
+    k1 = collections.Counter()
+    forwards = unet_forwards(cfg, steps)
+    for kind, count in forwards.items():
+        rows = {"pair": 2 * batch * t, "dedup": 2 * batch, "cond": batch * t}[kind]
+        first = kind == "dedup"
+        for side, mult, blocks in attn:
+            n, d = side**2, u.model_channels * mult // u.num_heads
+            for _ in range(blocks):
+                if n >= 512 and d <= 256:
+                    k1[((rows // 2 if first else rows) * u.num_heads, n, d)] += count
+                first = False
+    vae_lat = cfg.vae_tile if cfg.vae_tile and cfg.latent_size > cfg.vae_tile else cfg.latent_size
+    tv = n_tiles(cfg.latent_size, cfg.vae_tile, cfg.vae_tile_stride or cfg.vae_tile // 2)
+    d2 = cfg.vae.ch * cfg.vae.ch_mult[-1]
+    k2 = collections.Counter({(batch * tv, vae_lat**2, vae_lat**2, d2): 2})
+    per_fwd = 2 * (len(u.channel_mult) * (2 * u.num_res_blocks + 1) + 2) + 1
+    k3 = per_fwd * sum(forwards.values()) if u.fused_groupnorm else 0
+    return {"K1": k1, "K2": k2, "K3": k3, "forwards": sum(forwards.values())}
+
+
+def int8_layers(module) -> list:
+    return [m for m in module.modules() if getattr(m, "int8", False)]
+
+
+def serve_mode(name: str, cfg: SwapConfig, params: dict):
+    """One warm-up and one timed batch-2 request of a mode through
+    FaceSwapper.swap, the counts set to 0 before each and read after; the
+    output and every launch (K1 and K2 by shape, K3 and the int8 products
+    by count) held to the plan from the config. Returns (stats, swapper)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    swapper = FaceSwapper(cfg, params=params, device=dev)
+    build_s = time.perf_counter() - t0
+    steps = swapper.tables.num_steps
+    plan = mode_plan(cfg, steps)
+    unet_q, enc_q, dec_q, cond_q = (len(int8_layers(m)) for m in (
+        swapper.unet, swapper.vae.encoder, swapper.vae.decoder, swapper.conditioner))
+    plan["int8 products"] = unet_q * plan["forwards"] + enc_q + dec_q + cond_q
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for r in range(2):
+        req = make_request(20 + r, cfg.image_size, dev)
+        gen = torch.Generator(device=dev).manual_seed(r)
+        reset_counts()  # this mode's run starts here
+        PQ.int_mm.launches = 0
+        for k in KERNELS[:2]:
+            k.shapes = collections.Counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = swapper.swap(**req, generator=gen)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        got = {"K1": KERNELS[0].shapes, "K2": KERNELS[1].shapes, "K3": counts()[2],
+               "int8 products": PQ.int_mm.launches}
+        for k in KERNELS[:2]:
+            k.shapes = None
+        s = cfg.image_size
+        ok = (out.shape == (BATCH, s, s, 3) and bool(torch.isfinite(out).all())
+              and float(out.abs().max()) <= 1.0)
+        if not ok:
+            fail(f"{name}: output not finite ({BATCH},{s},{s},3) in [-1,1]")
+        bad = [k for k in got if got[k] != plan[k]]
+        if bad:
+            fail(f"{name}: launches {[(k, got[k], plan[k]) for k in bad]} (got, planned)")
+    peak = torch.cuda.max_memory_allocated()
+    stats = {"steps": steps, "unet_forwards": plan["forwards"], "first_s": lat[0],
+             "steady_s": lat[1], "swaps_per_s": BATCH / lat[1], "peak_gib": peak / 2**30,
+             "build_s": build_s, "K1": sum(got["K1"].values()), "K2": sum(got["K2"].values()),
+             "K3": got["K3"], "int8_products": got["int8 products"],
+             "K1_shapes": {str(k): v for k, v in got["K1"].items()},
+             "K2_shapes": {str(k): v for k, v in got["K2"].items()}}
+    print(f"  {name}: {steps} steps, {plan['forwards']} UNet forwards; first {lat[0]:.3f} s, "
+          f"steady {lat[1]:.3f} s, {BATCH / lat[1]:.3f} swaps/s, peak {peak / 2**30:.2f} GiB; "
+          f"launches K1 {stats['K1']} {dict(got['K1'])}, K2 {stats['K2']} {dict(got['K2'])}, "
+          f"K3 {got['K3']}, int8 products {got['int8 products']} (all as planned); output "
+          f"finite in [-1,1], std {out.float().std().item():.4f}", flush=True)
+    return stats, swapper
+
+
+def int8_product_checks(swapper, cfg: SwapConfig, params: dict, mode: str) -> dict:
+    """The int8 path of one full-width UNet forward (batch 2, dedup): the
+    card's int8 product (torch._int_mm) bit-equal to int_mm_plain at each of
+    its (M, K, N), on random int8 operands over the full range; each int8
+    layer's dequantised output equal with either product; the forward
+    against the bf16 forward with the same weights (INT8_TOL); per shape
+    class, _int_mm, the whole int8 site and the bf16 product it replaces,
+    timed. Returns the numbers."""
+    x9, t, ctx2 = unet_inputs(cfg, seed=31, ctx_batch=2 * BATCH)
+    classes = collections.Counter()
+    hooks = [m.register_forward_hook(lambda m, a, o: classes.update(
+        [(type(m).__name__, tuple(a[0].shape), tuple(m.weight.shape))]))
+        for m in int8_layers(swapper.unet)]
+    PQ.int_mm.shapes = collections.Counter()
+    with torch.inference_mode():
+        swapper.unet(x9, t, ctx2, cfg_expand=True)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    mm_shapes, PQ.int_mm.shapes = PQ.int_mm.shapes, None
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for (m, k, n) in mm_shapes:
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        if not torch.equal(PQ.int_mm(a, w), PQ.int_mm_plain(a, w)):
+            fail(f"{mode}: torch._int_mm differs from int_mm_plain at (M,K,N)=({m},{k},{n})")
+    # every int8 layer with either product: the same dequantised output
+    outs = {}
+    for key, mm in (("int_mm", KERNEL_INT_MM), ("int_mm_plain", PQ.int_mm_plain)):
+        PQ.int_mm = mm  # int8_dense_q and int8_conv_q look it up at each call
+        layer_out = []
+        hooks = [m.register_forward_hook(lambda m, a, o: layer_out.append(o.clone()))
+                 for m in int8_layers(swapper.unet)]
+        try:
+            with torch.inference_mode():
+                swapper.unet(x9, t, ctx2, cfg_expand=True)
+        finally:
+            PQ.int_mm = KERNEL_INT_MM
+            for h in hooks:
+                h.remove()
+        outs[key] = layer_out
+    same = (len(outs["int_mm"]) == sum(mm_shapes.values())
+            and all(torch.equal(a, b) for a, b in zip(outs["int_mm"], outs["int_mm_plain"])))
+    print(f"  {mode}: int8 products of one UNet forward (dedup, batch {BATCH}): "
+          f"{sum(mm_shapes.values())} over {len(mm_shapes)} (M,K,N), _int_mm bit-equal to "
+          f"int_mm_plain at each; {len(outs['int_mm'])} int8 layers' outputs equal with "
+          f"either product: {same}", flush=True)
+    if not same:
+        fail(f"{mode}: an int8 layer's output depends on which exact product ran")
+    # the whole forward against bf16 with the same weights
+    plain = UNetModel(dataclasses.replace(cfg.unet, quant="none"), device="cuda")
+    plain.load_state_dict(params["unet"])
+    x9, t, ctx = unet_inputs(cfg, seed=33, ctx_batch=BATCH)
+    with torch.inference_mode():
+        rel = errors(swapper.unet(x9, t, ctx), plain(x9, t, ctx))[1]
+    del plain
+    print(f"  {mode}: full-width UNet forward vs the bf16 forward, same weights: rel L2 "
+          f"{rel:.4e} (tol {INT8_TOL[mode]:.0e})", flush=True)
+    if not rel <= INT8_TOL[mode]:
+        fail(f"{mode}: the int8 UNet forward is further from bf16 than {INT8_TOL[mode]}")
+    # per shape class: _int_mm, the whole int8 site, the bf16 product
+    rows, total = [], collections.Counter()
+    for (kind, xs, ws), count in sorted(classes.items(), key=lambda kv: -kv[1]):
+        x = torch.randn(xs, generator=g, device="cuda", dtype=torch.bfloat16)
+        w = torch.randn(ws, generator=g, device="cuda", dtype=torch.bfloat16) * 0.05
+        if kind == "Linear":
+            wq, wsc = PQ.quant_int8(w, dim=1)
+            a = torch.randint(-127, 128, (math.prod(xs[:-1]), xs[-1]), generator=g,
+                              device="cuda", dtype=torch.int8)
+            site = lambda: PQ.int8_dense_q(x, wq, wsc, out_dtype=torch.bfloat16)
+            bf16 = lambda: F.linear(x, w)
+            mkn = (a.shape[0], ws[1], ws[0])
+        else:
+            k, pad = ws[-1], ws[-1] // 2
+            wq, wsc = PQ.conv_weight_q(w)
+            a = torch.randint(-127, 128, (xs[0] * xs[2] * xs[3], wq.shape[1]), generator=g,
+                              device="cuda", dtype=torch.int8)
+            site = lambda: PQ.int8_conv_q(x, wq, wsc, k, pad, out_dtype=torch.bfloat16)
+            bf16 = lambda: F.conv2d(x, w, padding=pad)
+            mkn = (a.shape[0], wq.shape[1], ws[0])
+        t_mm = time_ms(lambda: PQ.int_mm(a, wq), budget_ms=20.0)
+        t_site, t_bf16 = time_ms(site, budget_ms=20.0), time_ms(bf16, budget_ms=20.0)
+        ops = 2.0 * math.prod(mkn)
+        rows.append({"kind": kind, "x": xs, "w": ws, "mkn": mkn, "count": count,
+                     "int_mm_ms": t_mm, "int8_site_ms": t_site, "bf16_ms": t_bf16})
+        for key, val in (("int_mm_ms", t_mm), ("int8_site_ms", t_site), ("bf16_ms", t_bf16)):
+            total[key] += count * val
+        print(f"    {kind} x{count} x {xs} w {ws} (M,K,N)={mkn}: _int_mm {t_mm:.4f} ms "
+              f"({ops / t_mm / 1e9:.0f} TOP/s), int8 site {t_site:.4f} ms, bf16 "
+              f"{'F.linear' if kind == 'Linear' else 'F.conv2d'} {t_bf16:.4f} ms", flush=True)
+    print(f"  {mode}: per UNet forward, {sum(classes.values())} int8 sites: _int_mm "
+          f"{total['int_mm_ms']:.3f} ms, the int8 sites {total['int8_site_ms']:.3f} ms, the "
+          f"bf16 products they replace {total['bf16_ms']:.3f} ms", flush=True)
+    return {"rel_l2_vs_bf16": rel, "products_per_forward": sum(mm_shapes.values()),
+            "per_forward_ms": dict(total), "classes": rows}
+
+
+def tiny_modes_reference():
+    """Every mode at the tiny fp32 config on the card against the port on
+    the CPU (phase 5's config, 256 px, fused GroupNorm): PLMS, DPM-Solver++
+    on lam_uniform with cfg_steps, the VAE and UNet tiles, the student rung
+    (cfg 1.0, fast attention), each within 1e-3 as phase 5; int8 site by
+    site: each int8 layer's input on the card fed to the CPU copy of the
+    layer, its output equal within 1e-6 of its largest (the same fp32
+    operations on identical int8 operands), since a whole int8 forward
+    cannot be held tightly (a quantisation boundary that the two devices'
+    float layers place a few ulps apart carries on through every later
+    site); and fold(unfold(x)) == x on the card."""
+    base = tiny_swap_config(image_size=256, ddim_steps=2)
+    rp = dataclasses.replace
+    base = rp(base, sample_posterior=False,
+              unet=rp(base.unet, fused_groupnorm=True),
+              vae=rp(base.vae, ch=32, ch_mult=(1, 2, 4, 16)))
+    modes = {
+        "PLMS-4": rp(base, sampler="plms", ddim_steps=4),
+        "DPM-4 lam_uniform cfg_steps=2": rp(base, sampler="dpm", ddim_steps=4,
+                                            ddim_discretize="lam_uniform", cfg_steps=2),
+        "tiles 16": rp(base, vae_tile=16, unet_tile=16),
+        "student DDIM-4 cfg 1.0 fast": rp(base, ddim_steps=4, cfg_scale=1.0,
+                                          unet=rp(base.unet, attn_impl="fast")),
+    }
+    req = make_request(7, 256, "cpu")
+    req["x_T"] = torch.randn((BATCH, 32, 32, 4), generator=torch.Generator().manual_seed(7))
+    worst = {}
+    for name, cfg in modes.items():
+        card = FaceSwapper(cfg, device="cuda")
+        for i, m in enumerate(card.towers().values()):
+            init_params(m, seed=40 + i, dezero=True)
+        cpu = FaceSwapper(cfg, device="cpu")
+        cpu.load_params({n: {k: v.cpu() for k, v in m.state_dict().items()}
+                         for n, m in card.towers().items()})
+        reset_counts()
+        out = card.swap(**{k: v.cuda() for k, v in req.items()})
+        torch.cuda.synchronize()
+        launched = counts()
+        err = (out.cpu() - cpu.swap(**req)).abs().max().item()
+        worst[name] = err
+        print(f"  tiny 256 px {name}, card vs CPU: max abs err {err:.3e} (tol 1e-3); "
+              f"launches K1 {launched[0]} K2 {launched[1]} K3 {launched[2]}", flush=True)
+        if not err <= 1e-3:
+            fail(f"tiny {name}: the card disagrees with the CPU port")
+    # int8 site by site, and the whole forward's distance from fp32
+    for quant in ("int8", "int8conv"):
+        ucfg = rp(base.unet, quant=quant)
+        card = UNetModel(ucfg, device="cuda")
+        init_params(card, seed=50, dezero=True)
+        cpu = UNetModel(ucfg)
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        seen = []
+        hooks = [m.register_forward_hook(lambda m, a, o: seen.append((m, a[0].clone(), o.clone())))
+                 for m in int8_layers(card)]
+        g = torch.Generator().manual_seed(8)
+        x9, t, ctx = (torch.randn((BATCH, 9, 32, 32), generator=g),
+                      torch.randint(1, 1000, (BATCH,), generator=g),
+                      torch.randn((BATCH, 1, 768), generator=g))
+        with torch.inference_mode():
+            card(x9.cuda(), t.cuda(), ctx.cuda())
+        for h in hooks:
+            h.remove()
+        by_id = dict(zip(map(id, card.modules()), cpu.modules()))
+        site_err = 0.0
+        with torch.inference_mode():
+            for m, a, o in seen:
+                ref = by_id[id(m)](a.cpu())
+                site_err = max(site_err, ((o.cpu() - ref).abs().max() / ref.abs().max()).item())
+        print(f"  tiny UNet {quant} on the card: {len(seen)} int8 sites, each against the CPU "
+              f"layer on the card's input: max error {site_err:.3e} of the site's largest "
+              f"output (tol 1e-6)", flush=True)
+        if len(seen) != len(int8_layers(card)) or not site_err <= 1e-6:
+            fail(f"tiny {quant}: an int8 site on the card disagrees with the CPU port")
+        worst[f"int8 sites {quant}"] = site_err
+    x = torch.randn((BATCH, 9, 128, 128), device="cuda")
+    tiles, meta = tiling.unfold(x, 64, 32)
+    err = ((tiling.fold(tiles, meta) - x).abs().max() / x.abs().max()).item()
+    print(f"  fold(unfold(x)) on the card, (2,9,128,128) in 9 tiles of 64 at stride 32: "
+          f"max error {err:.3e} of max |x| (tol 1e-6: the weighted mean's fp32 rounding, "
+          f"a few ulps)", flush=True)
+    if not err <= 1e-6:
+        fail("fold(unfold(x)) != x on the card")
+    worst["fold(unfold(x))"] = err
+    return worst
+
+
+def serving_modes(params: dict, gen):
+    """Phase 9. Returns (per-mode stats, the K1/K2 entries at the tiled
+    shapes, the int8 checks, the tiny checks)."""
+    stats, int8 = {}, {}
+    for name, cfg in serving_mode_configs().items():
+        st, swapper = serve_mode(name, cfg, params)
+        stats[name] = st
+        if cfg.unet.quant != "none" and cfg.cfg_scale != 1.0:
+            int8[name] = int8_product_checks(swapper, cfg, params, cfg.unet.quant)
+        del swapper
+        torch.cuda.empty_cache()
+    tiled = stats["1024 px tiles DDIM-10"]
+    as_shapes = lambda d: collections.Counter({eval(k): v for k, v in d.items()})
+    k1 = collections.Counter({(bh, n, n, d): c // 10 for (bh, n, d), c in
+                              as_shapes(tiled["K1_shapes"]).items()})
+    k2 = as_shapes(tiled["K2_shapes"])
+    print("  K1 and K2 at the tiled shapes (per UNet forward / per swap) against their "
+          "plain versions", flush=True)
+    entries = {"K1": check_attention("K1", self_attention_smalld, k1, [], gen),
+               "K2": check_attention("K2", wide_attention, k2, [], gen)}
+    tiny = tiny_modes_reference()
+    return stats, entries, int8, tiny
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1666,11 +2054,20 @@ def main():
     print(f"phase 4: bf16 towers against fp32 copies, UNet with and without "
           f"fused_groupnorm, batch {BATCH}", flush=True)
     k3_launches = towers_vs_fp32(swapper, cfg, k3_per_fwd)
+    params = {name: m.state_dict() for name, m in swapper.towers().items()}
     del swapper
     torch.cuda.empty_cache()
 
     print("phase 5: a small input against the CPU port", flush=True)
     tiny_reference()
+
+    t9 = time.perf_counter()
+    print(f"phase 9: the swap's other serving modes, SwapConfig() widths and phase 3's "
+          f"weights, batch {BATCH}, one warm-up and one timed request each", flush=True)
+    mode_stats, tiled_entries, int8_stats, tiny_modes = serving_modes(params, gen)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -1731,6 +2128,14 @@ def main():
     rows[0]["max_abs_err_vs_smalld_attention_plain"] = entries["K1"][
         "max_abs_err_vs_smalld_attention_plain"]
     rows[0]["d160"] = entries["K1"]["d160"]
+    # phase 9: each kernel's launches in each serving mode's timed request,
+    # and K1 / K2 at the 1024 px tiles' shapes
+    for row, key in zip(rows[:3], ("K1", "K2", "K3")):
+        row["launches_serving_modes"] = {m: st[key] for m, st in mode_stats.items()}
+    for row, key in zip(rows[:2], ("K1", "K2")):
+        row["tiles_1024"] = {k: tiled_entries[key][k] for k in (
+            "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
     lib_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     train_meta = {
         "K2r": ("flash_attention_fwd", "reface_tpu_torch/csrc/attention_fwd_sm90.cuh",
@@ -1806,6 +2211,8 @@ def main():
           f"{full_times[0]:.3f} s, steady {sum(fsteady) / len(fsteady):.3f} s, peak "
           f"{full_peak / 2**30:.2f} GiB; wall {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
+                      "tiny_card_vs_cpu": tiny_modes}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

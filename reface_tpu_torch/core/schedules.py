@@ -58,11 +58,13 @@ def make_ddim_timesteps(
     num_ddim_steps: int,
     num_ddpm_steps: int = 1000,
     method: str = "uniform",
+    alphas_cumprod: "np.ndarray | None" = None,
 ) -> np.ndarray:
     """DDIM timestep subset, including the reference's +1 offset.
 
-    Only the reference's "uniform" and "quad" grids are ported; the
-    logSNR-uniform grid belongs to the DPM-Solver slice (ROADMAP A8).
+    "uniform"/"quad" are the reference's grids. "lam_uniform" spaces the
+    subset uniformly in half-log-SNR lam = 0.5*log(a/(1-a)), the grid the
+    DPM-Solver++ error analysis assumes; it needs `alphas_cumprod`.
     """
     if method == "uniform":
         c = num_ddpm_steps // num_ddim_steps
@@ -70,14 +72,48 @@ def make_ddim_timesteps(
     elif method == "quad":
         ts = (np.linspace(0, math.sqrt(num_ddpm_steps * 0.8), num_ddim_steps) ** 2).astype(int)
     elif method == "lam_uniform":
-        raise NotImplementedError(
-            "lam_uniform discretization is not ported yet (ROADMAP A8)"
-        )
+        return _lam_uniform_timesteps(num_ddim_steps, num_ddpm_steps, alphas_cumprod)
     else:
         raise ValueError(f"unknown ddim discretization {method!r}")
     # +1 so the final step's alpha is the one that scales to data; clipped so
     # non-divisor step counts stay in range
     return np.minimum(ts + 1, num_ddpm_steps - 1)
+
+
+def _lam_uniform_timesteps(num_ddim_steps: int, num_ddpm_steps: int,
+                           alphas_cumprod) -> np.ndarray:
+    """Exactly num_ddim_steps distinct indices in [1, T-1], nearest to a grid
+    uniform in lam from the "uniform" grid's high-noise anchor down to lam[1]."""
+    if alphas_cumprod is None:
+        raise ValueError("lam_uniform discretization needs alphas_cumprod")
+    acp = np.asarray(alphas_cumprod, np.float64)
+    lam = 0.5 * (np.log(acp) - np.log1p(-acp))
+    if num_ddim_steps > len(lam) - 1:
+        # index 0 is reserved (the +1 offset), so at most T-1 indices exist
+        raise ValueError(
+            f"lam_uniform needs num_ddim_steps <= {len(lam) - 1}, "
+            f"got {num_ddim_steps}"
+        )
+    t_hi = num_ddpm_steps - num_ddpm_steps // num_ddim_steps + 1
+    targets = np.linspace(lam[t_hi], lam[1], num_ddim_steps)
+    # greedy nearest-unused index: a plain per-target argmin collapses
+    # duplicates where lam is dense against the target spacing
+    used = np.zeros(len(lam), bool)
+    used[0] = True
+    idx = np.empty(num_ddim_steps, np.int64)
+    for i, tgt in enumerate(targets):
+        d = np.abs(lam - tgt)
+        d[used] = np.inf
+        j = int(d.argmin())
+        idx[i] = j
+        used[j] = True
+    idx = np.sort(idx)
+    if len(np.unique(idx)) != num_ddim_steps:
+        raise RuntimeError(
+            "lam_uniform produced duplicate timestep indices "
+            f"({len(np.unique(idx))} unique of {num_ddim_steps})"
+        )
+    return idx
 
 
 def _f32(x) -> torch.Tensor:
@@ -182,7 +218,8 @@ class DDIMTables:
         method: str = "uniform",
     ) -> "DDIMTables":
         acp = schedule.alphas_cumprod.cpu().numpy().astype(np.float64)
-        ts = make_ddim_timesteps(num_steps, schedule.num_timesteps, method)
+        ts = make_ddim_timesteps(num_steps, schedule.num_timesteps, method,
+                                 alphas_cumprod=acp)
         alphas = acp[ts]
         alphas_prev = np.concatenate([[acp[0]], acp[ts[:-1]]])
         sigmas = eta * np.sqrt(

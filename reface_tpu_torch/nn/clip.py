@@ -8,6 +8,9 @@ CLIPModel vision tower under `model.vision_model` and
 Dtype policy as in the JAX package: the products run in `dtype`, the
 LayerNorms in fp32 with fp32 outputs, so the residual stream is fp32. The
 257-token attention is a plain product (the JAX package leaves it to XLA).
+CLIPVisionConfig.quant="int8" (the --quant-cond serving mode) runs every
+layer's q/k/v/out projections and MLP products int8 (ops/quant.py); the
+patch embedding, the projection and the mapper stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ class CLIPVisionConfig:
     image_size: int = 224
     projection_dim: int = 768
     dtype: torch.dtype = torch.bfloat16
+    # "int8": the tower's transformer products (module docstring)
     quant: str = "none"
 
     @property
@@ -46,10 +50,11 @@ def quick_gelu(x):
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, hidden: int, heads: int, dtype, device=None):
+    def __init__(self, hidden: int, heads: int, dtype, quant: str = "none",
+                 device=None):
         super().__init__()
         self.heads = heads
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, quant=quant)
         self.q_proj = Linear(hidden, hidden, **kw)
         self.k_proj = Linear(hidden, hidden, **kw)
         self.v_proj = Linear(hidden, hidden, **kw)
@@ -65,18 +70,19 @@ class CLIPAttention(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, hidden, dtype, device):
+    def __init__(self, hidden, dtype, quant, device):
         super().__init__()
-        self.fc1 = Linear(hidden, hidden * 4, dtype=dtype, device=device)
-        self.fc2 = Linear(hidden * 4, hidden, dtype=dtype, device=device)
+        self.fc1 = Linear(hidden, hidden * 4, dtype=dtype, device=device, quant=quant)
+        self.fc2 = Linear(hidden * 4, hidden, dtype=dtype, device=device, quant=quant)
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, hidden: int, heads: int, dtype, device=None):
+    def __init__(self, hidden: int, heads: int, dtype, quant: str = "none",
+                 device=None):
         super().__init__()
-        self.self_attn = CLIPAttention(hidden, heads, dtype, device)
+        self.self_attn = CLIPAttention(hidden, heads, dtype, quant, device)
         self.layer_norm1 = LayerNorm(hidden, device=device)
-        self.mlp = _MLP(hidden, dtype, device)
+        self.mlp = _MLP(hidden, dtype, quant, device)
         self.layer_norm2 = LayerNorm(hidden, device=device)
 
     def forward(self, x):
@@ -99,7 +105,7 @@ class _Encoder(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig, device):
         super().__init__()
         self.layers = nn.ModuleList([
-            CLIPLayer(cfg.hidden, cfg.heads, cfg.dtype, device)
+            CLIPLayer(cfg.hidden, cfg.heads, cfg.dtype, cfg.quant, device)
             for _ in range(cfg.layers)])
 
 

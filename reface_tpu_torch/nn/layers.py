@@ -13,6 +13,14 @@ with.
 
 Parameter names follow the reference torch checkpoints, so a state_dict of
 the reference loads as it is (e.g. `to_out.0.weight`, `ff.net.0.proj.bias`).
+
+Int8 serving modes (`quant`, ops/quant.py), the JAX package's QDense and
+QConv sites: a Linear built with quant="int8" and a Conv2d built with
+"int8" or "int8conv" run their product int8 x int8 -> int32 and
+dequantise into `dtype`; "none" is the plain product. The weight is
+quantised from the stored weight (bf16 in serving, where the JAX package
+quantises its fp32 params) and kept until it changes. The parameters and
+their names are the same in every mode.
 """
 
 from __future__ import annotations
@@ -23,15 +31,24 @@ from torch import nn
 
 from reface_tpu_torch.ops.attention import multi_head_attention
 from reface_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+from reface_tpu_torch.ops.quant import (
+    QUANT_MODES,
+    cached_weight,
+    conv_weight_q,
+    int8_conv_q,
+    int8_dense_q,
+    quant_int8,
+)
 
 __all__ = ["Linear", "Conv2d", "GroupNorm32", "LayerNorm", "CrossAttention",
            "FeedForwardGEGLU", "Upsample", "check_quant"]
 
 
 def check_quant(quant: str) -> None:
-    if quant != "none":
-        raise NotImplementedError(
-            f"quant={quant!r} is not ported yet (ROADMAP A10)")
+    """Raise ValueError unless `quant` names a mode: "none", "int8" (every
+    dense and conv site) or "int8conv" (the conv sites only)."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant={quant!r}: expected one of {QUANT_MODES}")
 
 
 def _cast(t, dtype):
@@ -40,22 +57,33 @@ def _cast(t, dtype):
 
 class Linear(nn.Linear):
     """nn.Linear computing in `dtype` with its weight and bias stored in
-    `param_dtype` (default `dtype`)."""
+    `param_dtype` (default `dtype`); a QDense site: quant="int8" runs the
+    int8 product (int8_dense, from the un-cast input), "int8conv" and
+    "none" the plain one."""
 
     def __init__(self, in_features, out_features, bias=True,
-                 dtype=torch.float32, param_dtype=None, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None,
+                 quant: str = "none"):
         super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=param_dtype or dtype)
+        check_quant(quant)
         self.compute_dtype = dtype
+        self.int8 = quant == "int8"
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.int8:
+            wq = cached_weight(self, lambda w: quant_int8(w, dim=1))
+            y = int8_dense_q(x, *wq, out_dtype=dt)
+            return y if self.bias is None else y + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d computing in `dtype` with its weight and bias stored in
-    `param_dtype` (default `dtype`).
+    `param_dtype` (default `dtype`); a QConv site (stride 1, square kernel):
+    quant "int8" or "int8conv" runs the int8 product (int8_conv, from the
+    un-cast input).
 
     zero_init marks the layers the reference zero-initialises (ResBlock and
     UNet output convs, SpatialTransformer.proj_out); pipelines/swap.py's
@@ -64,15 +92,23 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  bias=True, dtype=torch.float32, param_dtype=None, device=None,
-                 zero_init: bool = False):
+                 zero_init: bool = False, quant: str = "none"):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=padding, bias=bias, dtype=param_dtype or dtype,
                          device=device)
+        check_quant(quant)
         self.compute_dtype = dtype
         self.zero_init = zero_init
+        self.int8 = quant != "none"
+        if self.int8 and (stride != 1 or self.kernel_size[0] != self.kernel_size[1]):
+            raise ValueError("an int8 Conv2d takes stride 1 and a square kernel")
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.int8:
+            wq = cached_weight(self, conv_weight_q)
+            y = int8_conv_q(x, *wq, self.kernel_size[0], self.padding[0], out_dtype=dt)
+            return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
         return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
@@ -142,19 +178,26 @@ class CrossAttention(nn.Module):
                  heads: int = 8, dim_head: int = 64, head_splits=(6, 2),
                  dtype=torch.float32, param_dtype=None, attn_impl: str = "auto",
                  quant: str = "none", device=None):
+        """quant="int8" quantises a self-attention's projections (to_q, to_k,
+        to_v, to_out); a cross-attention (context_dim given) stays plain,
+        as in the JAX package. The JAX package's int8 self-attention runs
+        one product against the concatenated q/k/v weight; three separate
+        products are the same numbers, since the activation scale is per
+        row and the weight scales per output column."""
         super().__init__()
         check_quant(quant)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self_kw = dict(kw, quant="none" if context_dim else quant)
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
         self.heads, self.dim_head, self.inner = heads, dim_head, inner
         self.ctx_dim = ctx_dim
         self.head_splits = head_splits
         self.attn_impl = attn_impl
-        self.to_q = Linear(query_dim, inner, bias=False, **kw)
-        self.to_k = Linear(ctx_dim, inner, bias=False, **kw)
-        self.to_v = Linear(ctx_dim, inner, bias=False, **kw)
-        self.to_out = nn.Sequential(Linear(inner, query_dim, **kw), nn.Identity())
+        self.to_q = Linear(query_dim, inner, bias=False, **self_kw)
+        self.to_k = Linear(ctx_dim, inner, bias=False, **self_kw)
+        self.to_v = Linear(ctx_dim, inner, bias=False, **self_kw)
+        self.to_out = nn.Sequential(Linear(inner, query_dim, **self_kw), nn.Identity())
 
     def _split_context(self, proj, ctx):
         """Project a 2*ctx_dim split context: heads[:s0] from the first half,
@@ -198,14 +241,14 @@ class FeedForwardGEGLU(nn.Module):
     """GEGLU feed-forward: proj to 2*4d, gate with gelu, project back.
 
     The gate uses the tanh-approximate gelu, as the JAX package's flax
-    nn.gelu default does (ROADMAP section C logs the question).
+    nn.gelu default does (ROADMAP section C logs the question). Both
+    projections are QDense sites (quant="int8").
     """
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32,
                  param_dtype=None, quant: str = "none", device=None):
         super().__init__()
-        check_quant(quant)
-        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device, quant=quant)
         inner = dim * mult
         self.net = nn.ModuleList([
             _GEGLUProj(dim, inner, kw),

@@ -10,6 +10,13 @@ Kernels on this path (on a CUDA tensor): the self-attention at 4096 and
 residual K2 forward, K4/K5 in the backward); with fused_groupnorm=True the
 ResBlock norms and the output norm run K3 (ops/groupnorm.py).
 
+UNetConfig.quant, the int8 serving modes (ops/quant.py): "int8" runs the
+ResBlock convs (in_layers.2, out_layers.3, skip_connection) and each
+TransformerBlock's self-attention projections and GEGLU products int8;
+"int8conv" the ResBlock convs only. The stem, head, up/downsample convs,
+proj_in/proj_out, the time embedding and the cross-attention stay in the
+compute dtype; with fused_groupnorm K3 feeds the int8 convs.
+
 `param_dtype` (UNetModel's argument) stores the Linear/Conv weights in
 another dtype than the compute dtype: training keeps them in fp32
 (nn/layers.py). remat=True recomputes each ResBlock and SpatialTransformer
@@ -61,28 +68,30 @@ class UNetConfig:
     # self-attention: "auto" (K1 routing), "fast" (K1 without the softmax
     # shift), "flash" (differentiable, training), "einsum" (plain product)
     attn_impl: str = "auto"
+    # "none" | "int8" | "int8conv" (module docstring)
     quant: str = "none"
 
 
 class ResBlock(nn.Module):
     def __init__(self, channels: int, out_channels: int, emb_channels: int,
                  dtype=torch.float32, param_dtype=None, fused_gn: bool = False,
-                 device=None):
+                 quant: str = "none", device=None):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        qkw = dict(kw, quant=quant)  # the QConv sites
         self.fused_gn = fused_gn
         self.in_layers = nn.Sequential(
             GroupNorm32(channels, fuse_silu=fused_gn, device=device),
-            nn.SiLU(), Conv2d(channels, out_channels, 3, padding=1, **kw))
+            nn.SiLU(), Conv2d(channels, out_channels, 3, padding=1, **qkw))
         self.emb_layers = nn.Sequential(
             nn.SiLU(), Linear(emb_channels, out_channels, **kw))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels, fuse_silu=fused_gn, device=device),
             nn.SiLU(), nn.Identity(),
-            Conv2d(out_channels, out_channels, 3, padding=1, zero_init=True, **kw))
+            Conv2d(out_channels, out_channels, 3, padding=1, zero_init=True, **qkw))
         self.skip_connection = (
             nn.Identity() if channels == out_channels
-            else Conv2d(channels, out_channels, 1, **kw))
+            else Conv2d(channels, out_channels, 1, **qkw))
 
     def forward(self, x, emb):
         h = self.in_layers[0](x)
@@ -101,13 +110,13 @@ class ResBlock(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, channels: int, num_heads: int, context_dim: int,
                  dtype=torch.float32, param_dtype=None, attn_impl: str = "auto",
-                 device=None):
+                 quant: str = "none", device=None):
         super().__init__()
         d = channels // num_heads
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.attn1 = CrossAttention(channels, heads=num_heads, dim_head=d,
-                                    attn_impl=attn_impl, **kw)
-        self.ff = FeedForwardGEGLU(channels, **kw)
+                                    attn_impl=attn_impl, quant=quant, **kw)
+        self.ff = FeedForwardGEGLU(channels, quant=quant, **kw)
         self.attn2 = CrossAttention(channels, context_dim=context_dim,
                                     heads=num_heads, dim_head=d, **kw)
         self.norm1 = LayerNorm(channels, out_dtype=dtype, device=device)
@@ -128,14 +137,14 @@ class TransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     def __init__(self, channels: int, num_heads: int, context_dim: int,
                  depth: int = 1, dtype=torch.float32, param_dtype=None,
-                 attn_impl: str = "auto", device=None):
+                 attn_impl: str = "auto", quant: str = "none", device=None):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.norm = GroupNorm32(channels, eps=1e-6, device=device)
         self.proj_in = Conv2d(channels, channels, 1, **kw)
         self.transformer_blocks = nn.ModuleList([
             TransformerBlock(channels, num_heads, context_dim,
-                             attn_impl=attn_impl, **kw)
+                             attn_impl=attn_impl, quant=quant, **kw)
             for _ in range(depth)])
         self.proj_out = Conv2d(channels, channels, 1, zero_init=True, **kw)
 
@@ -188,12 +197,13 @@ class UNetModel(nn.Module):
         emb_ch = mc * 4
 
         def res(cin, cout):
-            return ResBlock(cin, cout, emb_ch, fused_gn=cfg.fused_groupnorm, **kw)
+            return ResBlock(cin, cout, emb_ch, fused_gn=cfg.fused_groupnorm,
+                            quant=cfg.quant, **kw)
 
         def attn(ch):
             return SpatialTransformer(ch, cfg.num_heads, cfg.context_dim,
                                       depth=cfg.transformer_depth,
-                                      attn_impl=cfg.attn_impl, **kw)
+                                      attn_impl=cfg.attn_impl, quant=cfg.quant, **kw)
 
         self.time_embed = nn.Sequential(
             Linear(mc, emb_ch, **kw), nn.SiLU(), Linear(emb_ch, emb_ch, **kw))

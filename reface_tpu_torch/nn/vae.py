@@ -7,6 +7,10 @@ Module names are the reference torch checkpoint's (ldm model.py), e.g.
 dispatch; with VAEConfig.remat (training through the decoder) the decoder's
 runs the differentiable FlashAttention instead (the residual K2 forward,
 K4/K5 in the backward). The 0.18215 latent scale is applied by the caller.
+VAEConfig.quant "int8" or "int8conv" (the same here: the VAE has no dense
+site) runs the ResnetBlocks' conv1, conv2 and nin_shortcut int8
+(ops/quant.py); the mid-block attention, stem, head and up/downsampling
+stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -43,14 +47,15 @@ class VAEConfig:
     # the decoder's ResnetBlocks and Upsamples are recomputed in the backward
     # and its attention is the differentiable FlashAttention
     remat: bool = False
+    # "none" | "int8" | "int8conv" (module docstring)
     quant: str = "none"
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, channels: int, out_channels: int, dtype=torch.float32,
-                 device=None):
+                 quant: str = "none", device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, quant=quant)
         self.norm1 = GroupNorm32(channels, eps=1e-6, device=device)
         self.conv1 = Conv2d(channels, out_channels, 3, padding=1, **kw)
         self.norm2 = GroupNorm32(out_channels, eps=1e-6, device=device)
@@ -108,11 +113,11 @@ class Downsample(nn.Module):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
-def _mid(ch, kw, attn_impl: str = "auto"):
+def _mid(ch, kw, quant: str, attn_impl: str = "auto"):
     mid = nn.Module()
-    mid.block_1 = ResnetBlock(ch, ch, **kw)
+    mid.block_1 = ResnetBlock(ch, ch, quant=quant, **kw)
     mid.attn_1 = AttnBlock(ch, attn_impl=attn_impl, **kw)
-    mid.block_2 = ResnetBlock(ch, ch, **kw)
+    mid.block_2 = ResnetBlock(ch, ch, quant=quant, **kw)
     return mid
 
 
@@ -132,12 +137,13 @@ class Encoder(nn.Module):
             level = nn.Module()
             level.block = nn.ModuleList()
             for _ in range(cfg.num_res_blocks):
-                level.block.append(ResnetBlock(block_in, cfg.ch * mult, **kw))
+                level.block.append(ResnetBlock(block_in, cfg.ch * mult,
+                                               quant=cfg.quant, **kw))
                 block_in = cfg.ch * mult
             if i != len(cfg.ch_mult) - 1:
                 level.downsample = Downsample(block_in, **kw)
             self.down.append(level)
-        self.mid = _mid(block_in, kw)
+        self.mid = _mid(block_in, kw, cfg.quant)
         self.norm_out = GroupNorm32(block_in, eps=1e-6, device=device)
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, **kw)
@@ -160,13 +166,15 @@ class Decoder(nn.Module):
         kw = dict(dtype=cfg.dtype, device=device)
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1, **kw)
-        self.mid = _mid(block_in, kw, attn_impl="flash" if cfg.remat else "auto")
+        self.mid = _mid(block_in, kw, cfg.quant,
+                        attn_impl="flash" if cfg.remat else "auto")
         levels = [None] * len(cfg.ch_mult)
         for i in reversed(range(len(cfg.ch_mult))):
             level = nn.Module()
             level.block = nn.ModuleList()
             for _ in range(cfg.num_res_blocks + 1):
-                level.block.append(ResnetBlock(block_in, cfg.ch * cfg.ch_mult[i], **kw))
+                level.block.append(ResnetBlock(block_in, cfg.ch * cfg.ch_mult[i],
+                                               quant=cfg.quant, **kw))
                 block_in = cfg.ch * cfg.ch_mult[i]
             if i != 0:
                 level.upsample = Upsample(block_in, **kw)

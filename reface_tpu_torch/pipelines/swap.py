@@ -2,8 +2,12 @@
 
 Per batch: fused conditioning (CLIP on source and target as one 2B batch,
 ArcFace, landmarks), VAE encode of the masked target, the mask resized to
-latent size with torch semantics, DDIM-50 with CFG 3 (unconditional half
-first, exact prefix dedup), VAE decode and clamp.
+latent size with torch semantics, the sampler (DDIM-50 with CFG 3,
+unconditional half first, exact prefix dedup, by default; or PLMS, or
+DPM-Solver++(2M)), VAE decode and clamp. vae_tile / unet_tile run the VAE
+and the UNet on overlapping tiles, all tiles in one batched call
+(parallel/tiling.py); the quant fields of the towers' configs select the
+int8 serving modes (ops/quant.py).
 
 The public `FaceSwapper.swap` keeps the JAX package's layout at its
 boundary: NHWC (B,512,512,3) images in [-1,1] in and out. Inside, the port
@@ -20,6 +24,8 @@ import torch
 
 from reface_tpu_torch.core.schedules import DDIMTables, DiffusionSchedule
 from reface_tpu_torch.diffusion.ddim import ddim_sample
+from reface_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
+from reface_tpu_torch.diffusion.plms import plms_sample
 from reface_tpu_torch.nn.arcface import CLIP_MEAN, CLIP_STD, ArcFaceConfig, BatchNormInference, PReLU
 from reface_tpu_torch.nn.clip import CLIPVisionConfig
 from reface_tpu_torch.nn.conditioner import ConditionerConfig, REFaceConditioner
@@ -27,9 +33,13 @@ from reface_tpu_torch.nn.layers import Conv2d, GroupNorm32, LayerNorm, Linear
 from reface_tpu_torch.nn.unet import UNetConfig, UNetModel
 from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL, VAEConfig
 from reface_tpu_torch.ops.resize import resize_bilinear_aa, resize_bilinear_no_aa
+from reface_tpu_torch.parallel.tiling import tiled_apply
 
 __all__ = ["SwapConfig", "SwapModules", "FaceSwapper", "clip_normalize",
-           "un_norm", "init_params", "tiny_swap_config", "resolve_device"]
+           "un_norm", "init_params", "tiny_swap_config", "resolve_device",
+           "SAMPLERS"]
+
+SAMPLERS = ("ddim", "plms", "dpm")
 
 
 def un_norm(x):
@@ -55,14 +65,21 @@ class SwapConfig:
     # CFG only on the first cfg_steps steps (0 = CFG on every step)
     cfg_steps: int = 0
     eta: float = 0.0
-    sampler: str = "ddim"
+    sampler: str = "ddim"  # "ddim" | "plms" | "dpm" (DPM-Solver++(2M))
+    # timestep subset: "uniform"/"quad" (the reference's) or "lam_uniform"
+    # (uniform in half-log-SNR, the grid DPM-Solver++ wants)
     ddim_discretize: str = "uniform"
     image_size: int = 512
     latent_size: int = 64
     sample_posterior: bool = True  # the reference samples the VAE posterior
     start_noise_t: int = 999  # target_start_noise_t for prior starts
+    # overlapping tiles for the VAE, in latent pixels (times the VAE's
+    # factor for the encode); 0 = off
     vae_tile: int = 0
+    vae_tile_stride: int = 0  # 0 = vae_tile // 2
+    # overlapping tiles for the UNet (each tile with the same context); 0 = off
     unet_tile: int = 0
+    unet_tile_stride: int = 0  # 0 = unet_tile // 2
     # exact CFG prefix dedup (UNetModel cfg_expand)
     cfg_dedup: bool = True
 
@@ -128,11 +145,6 @@ class SwapModules:
     def __init__(self, config: SwapConfig, device=None, param_dtype=None):
         self.config = config
         self.device = resolve_device(device)
-        for name, val in (("vae_tile", config.vae_tile),
-                          ("unet_tile", config.unet_tile)):
-            if val:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP A8)")
         self.unet = UNetModel(config.unet, device=self.device,
                               param_dtype=param_dtype).eval()
         self.vae = AutoencoderKL(config.vae, device=self.device).eval()
@@ -149,19 +161,61 @@ class SwapModules:
         for name, module in self.towers().items():
             module.load_state_dict(params[name])
 
+    @property
+    def _vae_factor(self) -> int:
+        return self.config.image_size // self.config.latent_size
+
     def encode_latent(self, image, generator=None):
-        post = self.vae.encode(image)
-        z = post.sample(generator) if generator is not None else post.mode()
-        return z * SD_SCALE_FACTOR
+        """(B,3,S,S) -> (B,4,S/f,S/f) scaled latent; the posterior sampled
+        from `generator`, else its mode. Tiled above vae_tile * f pixels."""
+        cfg = self.config
+
+        def enc(img):
+            post = self.vae.encode(img)
+            z = post.sample(generator) if generator is not None else post.mode()
+            return z * SD_SCALE_FACTOR
+
+        f = self._vae_factor
+        if cfg.vae_tile and image.shape[2] > cfg.vae_tile * f:
+            stride = (cfg.vae_tile_stride or cfg.vae_tile // 2) * f
+            return tiled_apply(enc, image, cfg.vae_tile * f, stride,
+                               out_channels=4, scale=1.0 / f)
+        return enc(image)
 
     def decode_latent(self, z):
-        return torch.clamp(self.vae.decode(z / SD_SCALE_FACTOR), -1.0, 1.0)
+        """Scaled latent -> image clamped to [-1,1]; tiled above vae_tile."""
+        cfg = self.config
+
+        def dec(zz):
+            return torch.clamp(self.vae.decode(zz / SD_SCALE_FACTOR), -1.0, 1.0)
+
+        if cfg.vae_tile and z.shape[2] > cfg.vae_tile:
+            stride = cfg.vae_tile_stride or cfg.vae_tile // 2
+            return tiled_apply(dec, z, cfg.vae_tile, stride, out_channels=3,
+                               scale=self._vae_factor)
+        return dec(z)
 
     def build_context(self, ref_clip224, target_image, landmarks):
         """Fused conditioning: CLIP(src)+CLIP(tar)+ID(src)+landmarks(tar)."""
         tar224 = clip_normalize(un_norm(target_image))
         c = self.conditioner(ref_clip224, tar224, landmarks)
         return c, self.conditioner.null_conditioning(c.shape[0])
+
+    def unet_eps(self, x9, t, context):
+        """eps of the UNet; above unet_tile latent pixels on overlapping
+        tiles, each with its sample's t and context (repeated by whole
+        batches, as the tiles are grouped tile-major), in one batched call."""
+        cfg = self.config
+        if cfg.unet_tile and x9.shape[2] > cfg.unet_tile:
+            stride = cfg.unet_tile_stride or cfg.unet_tile // 2
+            b = x9.shape[0]
+
+            def fn(tiles):
+                n = tiles.shape[0] // b
+                return self.unet(tiles, t.repeat(n), context.repeat(n, 1, 1))
+
+            return tiled_apply(fn, x9, cfg.unet_tile, stride, out_channels=4)
+        return self.unet(x9, t, context)
 
     def unet_eps_cfg_dedup(self, x9, t, context_pair):
         """x9/t at B, context_pair at 2B (uncond first) -> eps at 2B."""
@@ -181,9 +235,14 @@ class FaceSwapper(SwapModules):
 
     def __init__(self, config: SwapConfig, params: dict | None = None,
                  device=None):
-        if config.sampler != "ddim":
-            raise NotImplementedError(
-                f"sampler={config.sampler!r} is not ported yet (ROADMAP A8)")
+        if config.sampler not in SAMPLERS:
+            raise ValueError(f"sampler={config.sampler!r}: expected one of {SAMPLERS}")
+        if config.sampler in ("plms", "dpm") and config.eta != 0.0:
+            # both solve the deterministic probability-flow ODE; a stochastic
+            # eta would silently run another process than the config asks for
+            raise ValueError(
+                f"sampler={config.sampler!r} is deterministic (eta=0 only); "
+                f"got eta={config.eta}. Use sampler='ddim' for eta>0.")
         super().__init__(config, device)
         if params is None:
             for i, m in enumerate(self.towers().values()):
@@ -199,7 +258,7 @@ class FaceSwapper(SwapModules):
     def swap(self, target_image, inpaint_image, inpaint_mask, ref_clip224,
              landmarks=None, generator: torch.Generator | None = None,
              x_T=None, prior_image=None):
-        """Run one swap; returns (B,512,512,3) fp32 images in [-1,1].
+        """Run one swap; returns (B,S,S,3) fp32 images in [-1,1].
 
         Inputs are NHWC in [-1,1] (ref_clip224 CLIP-normalized, inpaint_mask
         1 = keep); landmarks (B,136) target pixel coordinates; x_T an
@@ -227,13 +286,20 @@ class FaceSwapper(SwapModules):
             x_T = self.schedule.q_sample(z_p, t0, noise)
         else:
             x_T = torch.randn((b, 4, hw, hw), generator=generator, device=dev)
-        z = ddim_sample(
-            self.unet, x_T, c, uc, z_inpaint, mask_latent, self.tables,
-            cfg.cfg_scale, eta=cfg.eta,
-            generator=generator if cfg.eta != 0 else None,
-            cfg_steps=cfg.cfg_steps or None,
-            dedup_model_fn=self.unet_eps_cfg_dedup if cfg.cfg_dedup else None,
-        )
+        # the dedup's cfg_expand bypasses unet_eps: the tiles win over it
+        dedup = (self.unet_eps_cfg_dedup if cfg.cfg_dedup and not cfg.unet_tile
+                 else None)
+        args = (self.unet_eps, x_T, c, uc, z_inpaint, mask_latent, self.tables,
+                cfg.cfg_scale)
+        if cfg.sampler == "plms":
+            z = plms_sample(*args)
+        elif cfg.sampler == "dpm":
+            z = dpm_solver_sample(*args, cfg_steps=cfg.cfg_steps or None,
+                                  dedup_model_fn=dedup)
+        else:
+            z = ddim_sample(*args, eta=cfg.eta,
+                            generator=generator if cfg.eta != 0 else None,
+                            cfg_steps=cfg.cfg_steps or None, dedup_model_fn=dedup)
         return self.decode_latent(z).permute(0, 2, 3, 1).contiguous()
 
     def swap_guided(self, *args, **kwargs):
