@@ -61,6 +61,21 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      (int8 site by site); fold(unfold(x)) == x; per mode the latency,
      swaps/s, peak memory and launches, and per int8 shape class the
      _int_mm, int8-site and bf16 times;
+  10. (run after phase 9) the raw-image path, RawSwapPipeline with
+     RawPipelineConfig() (1024 px align, 512 px BiSeNet, LandmarkNet at 256
+     px, both bf16, seeded random weights) on phase 3's towers:
+     swap_images on a batch of 2 1024 x 1024 frames and sources (one
+     warm-up, one timed request, then the same request stage by stage by
+     CUDA events: landmarks, align, source reference, parse, swap, paste
+     back), swap_images_robust with both one_program values on two batches
+     of 4 1080 x 1920 frames with a host landmark function that places a
+     68-point face and a forced presence pattern (a pass-through frame, the
+     carry inside a batch and across the two); each output the frame's
+     shape, finite, in [0,1], every quad finite with area > 0, pass-through
+     frames unchanged, K1 and K2 launches by shape and K3 by count against
+     the plan of the swap at that batch; bf16 BiSeNet and LandmarkNet
+     against fp32 copies; the tiny fp32 raw path on the card against the
+     CPU port (every entry point, detect_faces' boxes equal);
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
      (32,1024,80), and ragged ones at d = 40 and 80), of the VAE decoder's
@@ -110,7 +125,9 @@ import time
 import torch
 import torch.nn.functional as F
 
+from reface_tpu_torch.nn.bisenet import BiSeNet, parse_faces
 from reface_tpu_torch.nn.conditioner import REFaceConditioner
+from reface_tpu_torch.nn.landmarks import LandmarkNet
 from reface_tpu_torch.nn.unet import UNetModel
 from reface_tpu_torch.nn.vae import AutoencoderKL
 from reface_tpu_torch.nn.layers import CrossAttention
@@ -124,7 +141,9 @@ from reface_tpu_torch.ops.attention_smalld import (
 )
 from reface_tpu_torch.ops.groupnorm import cluster_plan, group_norm_silu, group_norm_silu_plain
 from reface_tpu_torch.ops import quant as PQ
+from reface_tpu_torch.ops.resize import resize_bilinear_aa
 from reface_tpu_torch.parallel import tiling
+from reface_tpu_torch.pipelines.raw import RawPipelineConfig, RawSwapPipeline, tiny_raw_config
 from reface_tpu_torch.pipelines.swap import (
     FaceSwapper,
     SwapConfig,
@@ -133,6 +152,7 @@ from reface_tpu_torch.pipelines.swap import (
     tiny_swap_config,
     un_norm,
 )
+from reface_tpu_torch.preprocess.align import paste_back
 from reface_tpu_torch.pipelines.train import (
     ReconLossConfig,
     TrainConfig,
@@ -1379,6 +1399,321 @@ def serving_modes(params: dict, gen):
     return stats, entries, int8, tiny
 
 
+# ------------------------------------------------------------------ phase 10
+
+# The raw-image path (RawSwapPipeline) at RawPipelineConfig()'s widths:
+# swap_images on batch-2 1024 x 1024 frames and sources (LandmarkNet on the
+# card), swap_images_robust on batches of 4 1080 x 1920 frames with a host
+# landmark function (the ERT's hook) that places a 68-point face.
+RAW_SIZE = 1024
+FRAME_HW = (1080, 1920)
+ROBUST_BATCH = 4
+# forced presence of the robust batches: a pass-through frame, the carry
+# inside a batch and across the two
+ROBUST_PRESENCE = ([False, True, False, True], [False, False, True, False])
+# bf16 BiSeNet and LandmarkNet against fp32 copies with the same weights,
+# random weights, on the timed request's crops and frames: the share of
+# pixels whose class agrees (seen 0.9929 on the H100), and the largest
+# landmark distance in px at 1024 px (seen 0.378); the limits allow about
+# twice the disagreement and 2.5 times the distance
+RAW_BF16_TOL = {"class agreement": 0.985, "landmark px": 1.0}
+# the tiny fp32 raw path, card against the CPU port (as phase 5's swap)
+RAW_TINY_TOL = 1e-3
+
+
+def face_template() -> torch.Tensor:
+    """A 68-point face (iBUG order) in [0,1]^2, x right, y down: jaw arc,
+    brows, nose, eyes, outer and inner lips."""
+    pts = [[0.5 + 0.38 * math.cos(math.pi * (1 - i / 16)),
+            0.47 + 0.45 * math.sin(math.pi * (1 - i / 16))] for i in range(17)]
+    for side in (-1, 1):
+        pts += [[0.5 + side * (0.17 + (i / 4 - 0.5) * 0.16),
+                 0.30 - 0.035 * (1 - (i / 2 - 1) ** 2)] for i in range(5)]
+    pts += [[0.5, 0.36 + i * 0.055] for i in range(4)]
+    pts += [[0.5 + (i - 2) * 0.035, 0.555 + 0.012 * (1 - abs(i - 2))] for i in range(5)]
+    for side in (-1, 1):
+        pts += [[0.5 + side * 0.17 + 0.055 * math.cos(math.pi * i / 3),
+                 0.385 + 0.025 * math.sin(math.pi * i / 3)] for i in range(6)]
+    for n, rx, ry in ((12, 0.10, 0.045), (8, 0.065, 0.02)):
+        pts += [[0.5 + rx * math.cos(2 * math.pi * i / n),
+                 0.70 + ry * math.sin(2 * math.pi * i / n)] for i in range(n)]
+    return torch.tensor(pts)
+
+
+def template_landmarks(images):
+    """A host landmark_fn: the face template over the middle half of each
+    (B, H, W, 3) frame (numpy, as the ERT returns)."""
+    b, h, w = images.shape[:3]
+    pts = (face_template() - 0.5) * 0.5 * min(h, w) + torch.tensor([w / 2, h / 2])
+    return pts.expand(b, 68, 2).numpy()
+
+
+def with_x_T(swapper, x_T):
+    """Wrap swapper.swap to take the first rows of a fixed x_T, moved to the
+    swapper's device."""
+    swap = swapper.swap
+    swapper.swap = lambda **kw: swap(
+        **kw, x_T=x_T[:kw["target_image"].shape[0]].to(swapper.device))
+
+
+def raw_frames(seed: int, b: int, h: int, w: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((b, h, w, 3), generator=g, device="cuda")
+
+
+def check_raw_output(name, out, frames, quads, passthrough=()):
+    """The frame's shape, finite, in [0,1]; every quad finite with area > 0;
+    pass-through frames equal to their input."""
+    q = torch.as_tensor(quads, dtype=torch.float32)
+    x, y = q[..., 0], q[..., 1]
+    area = 0.5 * (x * y.roll(-1, 1) - x.roll(-1, 1) * y).sum(1).abs()
+    ok = (out.shape == frames.shape and bool(torch.isfinite(out).all())
+          and float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+          and bool(torch.isfinite(q).all()) and bool((area > 0).all())
+          and all(torch.equal(out[i], frames[i]) for i in passthrough))
+    if not ok:
+        fail(f"{name}: output not finite {tuple(frames.shape)} in [0,1], a quad not finite "
+             f"with area > 0, or a pass-through frame changed")
+    return area
+
+
+def raw_stages(pipe, target, source, gen):
+    """One swap_images request stage by stage, CUDA events between the
+    stages: {stage: ms}, and the output."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        tgt = target.permute(0, 3, 1, 2)
+        ev[0].record()
+        lm = pipe._landmarks(tgt)
+        ev[1].record()
+        crop, quads = pipe._align(tgt, lm)
+        ev[2].record()
+        ref = pipe._source_reference(source)
+        ev[3].record()
+        face = pipe._face_mask(pipe._parse(crop))
+        ev[4].record()
+        out_big = pipe._swap_crops(crop, face, ref, gen, True)
+        ev[5].record()
+        out = paste_back(tgt, out_big, quads).permute(0, 2, 3, 1)
+        ev[6].record()
+        ev[6].synchronize()
+    names = ("landmarks", "align", "source reference", "parse", "swap", "paste back")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}, out
+
+
+def raw_bf16_vs_fp32(pipe, target):
+    """bf16 BiSeNet and LandmarkNet against fp32 copies with the same
+    weights, on the request's aligned crops."""
+    f32 = torch.float32
+    rp = dataclasses.replace
+    cfg = pipe.config
+    bisenet32 = BiSeNet(rp(cfg.bisenet, dtype=f32), device="cuda")
+    bisenet32.load_state_dict(pipe.bisenet.state_dict())
+    lmnet32 = LandmarkNet(rp(cfg.landmark, dtype=f32), device="cuda")
+    lmnet32.load_state_dict(pipe.landmark_net.state_dict())
+    with torch.inference_mode():
+        tgt = target.permute(0, 3, 1, 2)
+        crop, _ = pipe._align(tgt, pipe._landmarks(tgt))
+        p = cfg.parse_size
+        small = resize_bilinear_aa(crop, p, p)
+        seg16 = parse_faces(pipe.bisenet, small)
+        seg32 = parse_faces(bisenet32.eval(), small)
+        s = cfg.landmark.input_size
+        x = resize_bilinear_aa(tgt, s, s) * 2 - 1
+        scale = tgt.shape[-1] / s
+        dist = ((pipe.landmark_net(x) - lmnet32.eval()(x)).reshape(-1, 68, 2) * scale).norm(dim=-1)
+    agree = (seg16 == seg32).float().mean().item()
+    px = dist.max().item()
+    print(f"  bf16 vs fp32, same weights: BiSeNet class agreement {agree:.4f} at "
+          f"{tuple(seg16.shape)} ({len(seg32.unique())} classes; limit >= "
+          f"{RAW_BF16_TOL['class agreement']}), LandmarkNet largest distance {px:.4f} px, "
+          f"mean {dist.mean().item():.4f} px at {RAW_SIZE} px (limit "
+          f"{RAW_BF16_TOL['landmark px']})", flush=True)
+    if not (agree >= RAW_BF16_TOL["class agreement"] and px <= RAW_BF16_TOL["landmark px"]):
+        fail("bf16 BiSeNet or LandmarkNet too far from its fp32 copy")
+    return {"bisenet_class_agreement": agree, "landmark_max_px": px,
+            "landmark_mean_px": dist.mean().item()}
+
+
+def raw_request_launches(name, plan):
+    """The launches of one request, read after it ran, against the plan:
+    K1 and K2 by shape, K3 by count."""
+    got = {"K1": KERNELS[0].shapes, "K2": KERNELS[1].shapes, "K3": counts()[2]}
+    for k in KERNELS[:2]:
+        k.shapes = None
+    bad = [k for k in got if got[k] != plan[k]]
+    if bad:
+        fail(f"{name}: launches {[(k, got[k], plan[k]) for k in bad]} (got, planned)")
+    return {"K1": sum(got["K1"].values()), "K2": sum(got["K2"].values()), "K3": got["K3"]}
+
+
+def start_request():
+    reset_counts()
+    for k in KERNELS[:2]:
+        k.shapes = collections.Counter()
+
+
+def raw_tiny_reference():
+    """The tiny fp32 raw path (tiny_raw_config, tiny_swap_config(64, 2),
+    sample_posterior off, the same x_T) on the card against the CPU port
+    with the same weights: detect_landmarks and parse, swap_images and
+    swap_images_robust (both one_program values, a forced presence pattern)
+    with the host landmark function, swap_frame_multiface on fixed boxes,
+    and detect_faces' boxes equal."""
+    cfg = dataclasses.replace(tiny_swap_config(64, 2), sample_posterior=False)
+    card_sw = FaceSwapper(cfg, device="cuda")
+    for i, m in enumerate(card_sw.towers().values()):
+        init_params(m, seed=60 + i, dezero=True)
+    cpu_sw = FaceSwapper(cfg, device="cpu")
+    cpu_sw.load_params({n: {k: v.cpu() for k, v in m.state_dict().items()}
+                        for n, m in card_sw.towers().items()})
+    card = RawSwapPipeline(card_sw, tiny_raw_config(), seed=7, device="cuda")
+    cpu = RawSwapPipeline(cpu_sw, tiny_raw_config(), device="cpu",
+                          landmark_params={k: v.cpu() for k, v in
+                                           card.landmark_net.state_dict().items()},
+                          bisenet_params={k: v.cpu() for k, v in
+                                          card.bisenet.state_dict().items()})
+    g = torch.Generator().manual_seed(9)
+    x_T = torch.randn((4, 8, 8, 4), generator=g)
+    tgt, src = torch.rand((4, 96, 96, 3), generator=g), torch.rand((2, 80, 80, 3), generator=g)
+    frame = torch.rand((96, 128, 3), generator=g)
+    for p in (card, cpu):
+        with_x_T(p.swapper, x_T)
+    err = {}
+    worst = lambda a, b: (a.cpu().float() - b.float()).abs().max().item()
+    err["detect_landmarks (px)"] = worst(card.detect_landmarks(tgt), cpu.detect_landmarks(tgt))
+    err["parse (classes differing)"] = float(
+        (card.parse(tgt).cpu() != cpu.parse(tgt)).sum().item())
+    boxes = card.detect_faces(frame, max_faces=3)
+    if boxes != cpu.detect_faces(frame, max_faces=3):
+        fail(f"detect_faces: the card's boxes {boxes} differ from the CPU port's")
+    for p in (card, cpu):
+        p.landmark_fn = template_landmarks
+    err["swap_images"] = worst(card.swap_images(tgt[:2], src), cpu.swap_images(tgt[:2], src))
+    for one_program in (True, False):
+        states = [None, None]
+        for r, presence in enumerate(ROBUST_PRESENCE):
+            outs = []
+            for i, p in enumerate((card, cpu)):
+                p.face_presence = lambda t, min_area_frac=2e-3, pr=presence: torch.tensor(pr)
+                out, states[i], _ = p.swap_images_robust(tgt, src[:1].expand(4, -1, -1, -1),
+                                                         state=states[i],
+                                                         one_program=one_program)
+                outs.append(out)
+            err[f"swap_images_robust one_program={one_program} batch {r}"] = worst(*outs)
+    fixed = [(4, 6, 60, 62), (70, 30, 120, 80)]
+    for p in (card, cpu):
+        p.detect_faces = lambda f, max_faces=4: fixed
+    err["swap_frame_multiface"] = worst(card.swap_frame_multiface(frame, src[:1]),
+                                        cpu.swap_frame_multiface(frame, src[:1]))
+    print("  tiny fp32 raw path, card vs CPU (max abs on [0,1] frames; tol "
+          f"{RAW_TINY_TOL:.0e}): " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + f"; detect_faces boxes equal {boxes}", flush=True)
+    bad = [k for k, v in err.items() if not v <= (0 if "classes" in k else RAW_TINY_TOL)]
+    if bad:
+        fail(f"the card's tiny raw path disagrees with the CPU port: {bad}")
+    return err
+
+
+def raw_path(params: dict) -> dict:
+    """Phase 10. Returns its stats. Empties `params` once the swapper holds
+    the weights, so that the peak memory counts one copy of them."""
+    dev = torch.device("cuda")
+    cfg = SwapConfig()
+    t0 = time.perf_counter()
+    swapper = FaceSwapper(cfg, params=params, device=dev)
+    params.clear()  # from here the swapper holds the only copy of the weights
+    pipe = RawSwapPipeline(swapper, RawPipelineConfig(), seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_bisenet = sum(p.numel() for p in pipe.bisenet.parameters())
+    n_lm = sum(p.numel() for p in pipe.landmark_net.parameters())
+    print(f"  built RawPipelineConfig() (align {pipe.config.align_size}, parse "
+          f"{pipe.config.parse_size}, LandmarkNet {pipe.config.landmark.input_size} px widths "
+          f"{pipe.config.landmark.widths}) on phase 3's towers in {time.perf_counter() - t0:.1f} "
+          f"s: BiSeNet {n_bisenet:,} params, LandmarkNet {n_lm:,} params, bf16", flush=True)
+    stats = {"bisenet_params": n_bisenet, "landmark_net_params": n_lm}
+
+    # swap_images: one warm-up and one timed batch-2 request
+    target, source = raw_frames(30, BATCH, RAW_SIZE, RAW_SIZE), raw_frames(31, BATCH, RAW_SIZE,
+                                                                          RAW_SIZE)
+    plan = mode_plan(cfg, cfg.ddim_steps)
+    lat = []
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(2):
+        start_request()  # this request's run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.swap_images(target, source, generator=torch.Generator(device=dev).manual_seed(r))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        launches = raw_request_launches(f"swap_images request {r}", plan)
+        lm = pipe.detect_landmarks(target)
+        _, quads = pipe.align(target, lm)
+        area = check_raw_output(f"swap_images request {r}", out, target, quads)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  swap_images, batch {BATCH} of {RAW_SIZE}x{RAW_SIZE} frames: first {lat[0]:.3f} s, "
+          f"steady {lat[1]:.3f} s, {BATCH / lat[1]:.3f} frames/s, peak {peak / 2**30:.2f} GiB; "
+          f"launches K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']} (as planned "
+          f"by shape); output finite in [0,1], quad areas {[round(a, 1) for a in area.tolist()]} "
+          f"px^2, changed {(out - target).abs().max().item():.3f} max", flush=True)
+    stages, staged = raw_stages(pipe, target, source,
+                                torch.Generator(device=dev).manual_seed(1))
+    print("  the same request stage by stage (CUDA events, ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.2f}; max abs from the timed request "
+          f"{(staged - out).abs().max().item():.3e}", flush=True)
+    stats["swap_images"] = {"first_s": lat[0], "steady_s": lat[1], "frames_per_s": BATCH / lat[1],
+                            "peak_gib": peak / 2**30, "launches": launches,
+                            "stages_ms": stages}
+    stats["bf16_vs_fp32"] = raw_bf16_vs_fp32(pipe, target)
+
+    # swap_images_robust: two batches of 4 full-HD frames, state carried
+    pipe.landmark_fn = template_landmarks
+    frames = [raw_frames(40 + r, ROBUST_BATCH, *FRAME_HW) for r in range(2)]
+    real = pipe.face_presence(frames[0])
+    print(f"  face_presence of the first batch (random BiSeNet): {real.tolist()}; the robust "
+          f"runs force {ROBUST_PRESENCE}", flush=True)
+    src4 = source[:1].expand(ROBUST_BATCH, -1, -1, -1)
+    ref224 = pipe._source_reference(src4)
+    plan4 = mode_plan(cfg, cfg.ddim_steps, batch=ROBUST_BATCH)
+    pipe.swap_images_robust(frames[0], src4)  # warm-up at this batch and frame size
+    stats["robust"] = {}
+    for one_program in (True, False):
+        state, times = None, []
+        for r, presence in enumerate(ROBUST_PRESENCE):
+            pipe.face_presence = lambda t, min_area_frac=2e-3, pr=presence: torch.tensor(pr)
+            start_request()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, state, quads = pipe.swap_images_robust(
+                frames[r], src4, generator=torch.Generator(device=dev).manual_seed(r),
+                state=state, one_program=one_program, ref224=ref224 if r else None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches = raw_request_launches(f"robust one_program={one_program} batch {r}", plan4)
+            passthrough = [] if r else [0]
+            check_raw_output(f"robust one_program={one_program} batch {r}", out, frames[r],
+                             quads, passthrough)
+            if state is None:
+                fail(f"robust one_program={one_program} batch {r}: no state after a face")
+        del pipe.face_presence
+        stats["robust"][f"one_program={one_program}"] = {"s": times, "launches": launches}
+        print(f"  swap_images_robust one_program={one_program}, 2 batches of {ROBUST_BATCH} "
+              f"{FRAME_HW[0]}x{FRAME_HW[1]} frames (host landmarks, state carried, the second "
+              f"with a precomputed ref224): {times[0]:.3f} s, {times[1]:.3f} s, "
+              f"{ROBUST_BATCH * 2 / sum(times):.3f} frames/s; launches K1 {launches['K1']} K2 "
+              f"{launches['K2']} K3 {launches['K3']} a batch (as planned); pass-through frame "
+              f"unchanged, quads finite with area > 0", flush=True)
+    pipe.landmark_fn = None
+    stats["robust_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del pipe, swapper
+    torch.cuda.empty_cache()
+    stats["tiny_card_vs_cpu"] = raw_tiny_reference()
+    return stats
+
+
 # ------------------------------------------------------------------ phase 6
 
 def check_workspaces(workspaces, q, k, v, lse, do, di, scale):
@@ -2065,9 +2400,19 @@ def main():
     print(f"phase 9: the swap's other serving modes, SwapConfig() widths and phase 3's "
           f"weights, batch {BATCH}, one warm-up and one timed request each", flush=True)
     mode_stats, tiled_entries, int8_stats, tiny_modes = serving_modes(params, gen)
-    del params
     torch.cuda.empty_cache()
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s of wall", flush=True)
+
+    t10 = time.perf_counter()
+    print(f"phase 10: the raw-image path (RawSwapPipeline), RawPipelineConfig() with phase "
+          f"3's towers: swap_images at batch {BATCH} of {RAW_SIZE} px frames, "
+          f"swap_images_robust on batches of {ROBUST_BATCH} {FRAME_HW[0]}x{FRAME_HW[1]} "
+          f"frames, the tiny fp32 path card vs CPU", flush=True)
+    raw_stats = raw_path(params)
+    del params
+    torch.cuda.empty_cache()
+    raw_stats["wall_s"] = t10 = time.perf_counter() - t10
+    print(f"  phase 10 took {t10:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -2132,6 +2477,13 @@ def main():
     # and K1 / K2 at the 1024 px tiles' shapes
     for row, key in zip(rows[:3], ("K1", "K2", "K3")):
         row["launches_serving_modes"] = {m: st[key] for m, st in mode_stats.items()}
+    # phase 10: each kernel's launches in the timed raw request (batch 2) and
+    # in a robust batch (4 frames)
+    for row, key in zip(rows[:3], ("K1", "K2", "K3")):
+        row["launches_raw_path"] = {
+            "swap_images batch 2": raw_stats["swap_images"]["launches"][key],
+            **{f"swap_images_robust {m} batch {ROBUST_BATCH}": st["launches"][key]
+               for m, st in raw_stats["robust"].items()}}
     for row, key in zip(rows[:2], ("K1", "K2")):
         row["tiles_1024"] = {k: tiled_entries[key][k] for k in (
             "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2209,10 +2561,13 @@ def main():
           f"{step_times[0]:.3f} s, steady {sum(tsteady) / len(tsteady):.3f} s, peak "
           f"{train_peak / 2**30:.2f} GiB; full-loss step (batch {full_batch}) first "
           f"{full_times[0]:.3f} s, steady {sum(fsteady) / len(fsteady):.3f} s, peak "
-          f"{full_peak / 2**30:.2f} GiB; wall {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+          f"{full_peak / 2**30:.2f} GiB; raw request (batch {BATCH}, {RAW_SIZE} px) first "
+          f"{raw_stats['swap_images']['first_s']:.3f} s, steady "
+          f"{raw_stats['swap_images']['steady_s']:.3f} s, peak "
+          f"{raw_stats['swap_images']['peak_gib']:.2f} GiB, phase 10 {raw_stats['wall_s']:.1f} s; "
+          f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
-                      "tiny_card_vs_cpu": tiny_modes}), flush=True)
+                      "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

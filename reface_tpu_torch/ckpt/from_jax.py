@@ -4,8 +4,8 @@ The inverse of reface_tpu/ckpt/convert.py: each function takes one tower's
 flax param tree (nested dicts of numpy arrays, with or without the top
 "params" level) and returns the port module's state_dict, keyed by the
 reference torch checkpoint's names. The naming rules are copied from
-convert.py (`_unet_rule`, `_vae_rule`, `_clip_rule`, `_arcface_rule`), not
-imported, so this package never loads JAX.
+convert.py (`_unet_rule`, `_vae_rule`, `_clip_rule`, `_arcface_rule`,
+`_bisenet_rule`), not imported, so this package never loads JAX.
 
 A gradient tree of the same params (jax.grad of a loss over them) has the
 same paths and layouts and converts the same way, so the tests compare the
@@ -28,7 +28,8 @@ import torch
 
 __all__ = ["unet_from_jax", "vae_from_jax", "clip_conditioner_from_jax",
            "arcface_from_jax", "conditioner_from_jax", "lpips_from_jax",
-           "landmark_head_from_jax", "swap_from_jax"]
+           "landmark_head_from_jax", "swap_from_jax", "bisenet_from_jax",
+           "landmark_net_from_jax"]
 
 _ID = lambda a: a
 _NORM = {"scale": "weight", "bias": "bias"}
@@ -332,6 +333,90 @@ def landmark_head_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """LandmarkAuxHead params -> the port's state_dict; the flax head
     flattens NHWC before fc, the port NCHW."""
     return _convert(tree, _landmark_head_rule)
+
+
+# ---------------------------------------------------------------- BiSeNet
+
+def _bisenet_rule(p):
+    """Flax BiSeNet path -> face-parsing checkpoint key (the `cp.` prefix
+    for the context path's modules)."""
+    leaf, top = p[-1], p[0]
+
+    def bn(tprefix):
+        return f"{tprefix}.{_BN_LEAF[leaf]}", _ID
+
+    def conv(tprefix):
+        return f"{tprefix}.weight", _conv
+
+    def convbn(tprefix, sub):  # a ConvBN's children: conv / bn
+        return conv(f"{tprefix}.conv") if sub == "conv" else bn(f"{tprefix}.bn")
+
+    if top == "resnet":
+        child, R = p[1], "cp.resnet"
+        if child == "conv1":
+            return conv(f"{R}.conv1")
+        if child == "bn1":
+            return bn(f"{R}.bn1")
+        m = re.match(r"layer(\d)_(\d)$", child)
+        if m:
+            B, sub = f"{R}.layer{m.group(1)}.{m.group(2)}", p[2]
+            if sub in ("conv1", "conv2"):
+                return conv(f"{B}.{sub}")
+            if sub in ("bn1", "bn2"):
+                return bn(f"{B}.{sub}")
+            if sub == "down_conv":
+                return conv(f"{B}.downsample.0")
+            if sub == "down_bn":
+                return bn(f"{B}.downsample.1")
+    if top in ("arm16", "arm32"):
+        A, sub = f"cp.{top}", p[1]
+        if sub == "conv":
+            return convbn(f"{A}.conv", p[2])
+        if sub == "conv_atten":
+            return conv(f"{A}.conv_atten")
+        if sub == "bn_atten":
+            return bn(f"{A}.bn_atten")
+    if top in ("conv_avg", "conv_head16", "conv_head32"):
+        return convbn(f"cp.{top}", p[1])
+    if top == "ffm":
+        if p[1] == "convblk":
+            return convbn("ffm.convblk", p[2])
+        return conv(f"ffm.{p[1]}")
+    if top in ("conv_out", "conv_out16", "conv_out32"):
+        if p[1] == "conv":
+            return convbn(f"{top}.conv", p[2])
+        return conv(f"{top}.conv_out")
+    raise ValueError(f"unmapped bisenet path {'/'.join(p)}")
+
+
+def bisenet_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """nn/bisenet.py BiSeNet params -> the port's BiSeNet state_dict, keyed
+    as the face-parsing checkpoint."""
+    return _convert(tree, _bisenet_rule)
+
+
+# ------------------------------------------------------------ LandmarkNet
+
+def _landmark_net_rule(p):
+    """block_i/{down,conv}, fuse, heat: convs; block_i/{norm,norm2} and
+    fuse_norm: a GroupNorm32, whose flax GroupNorm is GroupNorm_0."""
+    leaf, top = p[-1], p[0]
+    if top.startswith("block_"):
+        sub = p[1]
+        if sub in ("norm", "norm2"):
+            return f"{top}.{sub}.{_NORM[leaf]}", _ID
+        return f"{top}.{sub}.{_tw(leaf)}", _xform(leaf, "conv")
+    if top == "fuse_norm":
+        return f"fuse_norm.{_NORM[leaf]}", _ID
+    if top in ("fuse", "heat"):
+        return f"{top}.{_tw(leaf)}", _xform(leaf, "conv")
+    raise ValueError(f"unmapped landmark net path {'/'.join(p)}")
+
+
+def landmark_net_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """nn/landmarks.py LandmarkNet params -> the port's LandmarkNet
+    state_dict."""
+    return _convert(tree, _landmark_net_rule)
 
 
 # ------------------------------------------------------ whole conditioner

@@ -113,16 +113,17 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm(32) in fp32 whatever the input dtype; returns the input dtype.
+    """GroupNorm (32 groups unless num_groups says otherwise) in fp32 whatever
+    the input dtype; returns the input dtype.
 
     fuse_silu=True returns SiLU(GroupNorm(x)) through kernel K3
     (ops/groupnorm.py) on the card; callers then skip their own SiLU.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, fuse_silu: bool = False,
-                 device=None):
+                 num_groups: int = 32, device=None):
         super().__init__()
-        self.groups = min(32, channels)  # tiny test configs
+        self.groups = min(num_groups, channels)  # tiny test configs
         self.eps = eps
         self.fuse_silu = fuse_silu
         self.weight = nn.Parameter(torch.ones(channels, device=device))

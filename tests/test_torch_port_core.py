@@ -114,7 +114,8 @@ def test_adaptive_pool_matches_jax(n, m):
 
 
 def test_port_imports_no_jax():
-    """The port imports neither jax nor reface_tpu (fresh interpreter)."""
+    """The port imports neither jax nor reface_tpu, nor cv2 or PIL, which
+    it does not depend on (fresh interpreter)."""
     code = (
         "import sys\n"
         "import reface_tpu_torch, reface_tpu_torch.pipelines.swap, "
@@ -122,10 +123,12 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.core.lr_schedule, reface_tpu_torch.ops.attention, "
         "reface_tpu_torch.ckpt.from_jax, reface_tpu_torch.ops.kernels, "
         "reface_tpu_torch.diffusion.losses, reface_tpu_torch.nn.lpips, "
-        "reface_tpu_torch.nn.landmarks\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'flax' or m.startswith('flax.') or m == 'reface_tpu' "
-        "or m.startswith('reface_tpu.')]\n"
+        "reface_tpu_torch.nn.landmarks, reface_tpu_torch.pipelines.raw, "
+        "reface_tpu_torch.nn.bisenet, reface_tpu_torch.preprocess.align, "
+        "reface_tpu_torch.preprocess.detect, reface_tpu_torch.preprocess.masks, "
+        "reface_tpu_torch.native_ops\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -136,9 +139,16 @@ def test_port_imports_no_jax():
 
 
 def test_no_silent_cpu(monkeypatch):
-    """device=None means CUDA; without a card the swapper raises."""
+    """device=None means CUDA; without a card the swapper and the raw
+    pipeline raise."""
+    from reface_tpu_torch.pipelines.raw import RawSwapPipeline, tiny_raw_config
     from reface_tpu_torch.pipelines.swap import FaceSwapper, tiny_swap_config
 
+    cpu_swapper = FaceSwapper(tiny_swap_config(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FaceSwapper(tiny_swap_config(), device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RawSwapPipeline(cpu_swapper, tiny_raw_config(), device=None)
+    with pytest.raises(ValueError, match="not its swapper's"):
+        RawSwapPipeline(cpu_swapper, tiny_raw_config(), device="cuda")
