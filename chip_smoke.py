@@ -60,7 +60,9 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      each mode at the tiny fp32 config on the card against the CPU port
      (int8 site by site); fold(unfold(x)) == x; per mode the latency,
      swaps/s, peak memory and launches, and per int8 shape class the
-     _int_mm, int8-site and bf16 times;
+     _int_mm, int8-site and bf16 times; the 1024 px tiled VAE encode of an
+     image whose centre 512 px tile is all zero, and that tile alone, bf16
+     against fp32 (ROADMAP C2);
   10. (run after phase 9) the raw-image path, RawSwapPipeline with
      RawPipelineConfig() (1024 px align, 512 px BiSeNet, LandmarkNet at 256
      px, both bf16, seeded random weights) on phase 3's towers:
@@ -76,6 +78,27 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      the plan of the swap at that batch; bf16 BiSeNet and LandmarkNet
      against fp32 copies; the tiny fp32 raw path on the card against the
      CPU port (every entry point, detect_faces' boxes equal);
+  11. (run after phase 10) the user entry points on phase 3's towers at
+     batch 1: the towers written as the reference's files (a REFace
+     last.ckpt with LitEma's model_ema.* and the Lightning entries, the
+     CLIP tower as an HF CLIP file, a face-parsing BiSeNet file, two
+     diffusers safety checkers) under build/, their sizes and times, and
+     read back by cli.common.build_swapper, every tensor bit-equal to phase
+     3's after the bfloat16 cast; GEGLU with SD's erf gelu against the
+     port's tanh (ROADMAP C1): one UNet forward in bf16 and in fp32 and one
+     DDIM-50 request, relative L2 of eps and of the image; cli.swap --precropped on a PNG
+     and a baseline-JPEG target written by the port's encoders, read back
+     by its decoder, the PNG within one level of FaceSwapper.swap called
+     directly; cli.swap raw on 1024 px JPEG targets with the BiSeNet file;
+     the demo server (raw, a safety checker that flags nothing) answering
+     three multipart POSTs of 1024 px JPEGs with PNGs, then a server whose
+     checker flags everything answering the first upload with the blur of
+     the unflagged response, and a server request's steps called one by one
+     (decodes, the swap in the main thread and in fresh threads, the
+     checker, the PNG encode); each driver's launches by shape against
+     mode_plan(cfg, 50, batch=1); K1 and K2 at the batch-1 shapes against
+     their plain versions; the host codecs' times at 1024 px; the files
+     deleted at the end;
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
      (32,1024,80), and ragged ones at d = 40 and 80), of the VAE decoder's
@@ -121,16 +144,22 @@ import re
 import shutil
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from reface_tpu_torch.nn.bisenet import BiSeNet, parse_faces
+from reface_tpu_torch.cli import common as cli_common
+from reface_tpu_torch.cli import demo_server
+from reface_tpu_torch.cli import swap as cli_swap
+from reface_tpu_torch.io import images
+from reface_tpu_torch.nn.bisenet import BiSeNet, BiSeNetConfig, parse_faces
 from reface_tpu_torch.nn.conditioner import REFaceConditioner
 from reface_tpu_torch.nn.landmarks import LandmarkNet
+from reface_tpu_torch.nn.safety import SafetyChecker, SafetyCheckerConfig
 from reface_tpu_torch.nn.unet import UNetModel
-from reface_tpu_torch.nn.vae import AutoencoderKL
-from reface_tpu_torch.nn.layers import CrossAttention
+from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL
+from reface_tpu_torch.nn.layers import CrossAttention, FeedForwardGEGLU
 from reface_tpu_torch.ops import attention as PA
 from reface_tpu_torch.ops import kernels
 from reface_tpu_torch.ops.attention import wide_attention
@@ -1375,9 +1404,47 @@ def tiny_modes_reference():
     return worst
 
 
+def zero_tile_encode(params: dict) -> dict:
+    """ROADMAP C2 at full width: the 1024 px tiles mode's tiled VAE encode
+    (512 px tiles at stride 256) of an image whose centre tile is all zero,
+    bf16 against an fp32 copy with the same weights, and that tile alone;
+    held to phase 4's VAE-encode tolerance."""
+    cfg = serving_mode_configs()["1024 px tiles DDIM-10"]
+    vae = AutoencoderKL(cfg.vae, device="cuda").eval().requires_grad_(False)
+    vae.load_state_dict(params["vae"])
+    vae32 = fp32_copy(vae, AutoencoderKL, dataclasses.replace(cfg.vae, dtype=torch.float32))
+    f = cfg.image_size // cfg.latent_size
+    tile, stride = cfg.vae_tile * f, (cfg.vae_tile_stride or cfg.vae_tile // 2) * f
+    g = torch.Generator(device="cuda").manual_seed(50)
+    img = torch.rand((1, 3, cfg.image_size, cfg.image_size), generator=g, device="cuda") * 2 - 1
+    img[:, :, stride:stride + tile, stride:stride + tile] = 0.0
+    enc = lambda v: lambda x: v.encode(x).mode() * SD_SCALE_FACTOR
+    out = {}
+    with torch.inference_mode():
+        for name, x, run in (
+                ("tiled encode, centre tile all zero", img,
+                 lambda v, x: tiling.tiled_apply(enc(v), x, tile, stride, out_channels=4,
+                                                 scale=1.0 / f)),
+                ("the all-zero 512 px tile alone", img[:, :, stride:stride + tile,
+                                                       stride:stride + tile],
+                 lambda v, x: enc(v)(x))):
+            a, b = run(vae, x), run(vae32, x)
+            err, rel = errors(a, b)
+            ok = bool(torch.isfinite(a).all()) and rel <= TOWER_TOL["VAE encode"]
+            out[name] = {"max_abs": err, "rel_l2": rel}
+            print(f"  ROADMAP C2, {name}: bf16 {tuple(a.shape)} vs fp32 rel L2 {rel:.4e} (tol "
+                  f"{TOWER_TOL['VAE encode']:.0e}), max abs {err:.4e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"bf16 VAE encode, {name}: further from fp32 than the tolerance")
+    del vae, vae32
+    return out
+
+
 def serving_modes(params: dict, gen):
     """Phase 9. Returns (per-mode stats, the K1/K2 entries at the tiled
-    shapes, the int8 checks, the tiny checks)."""
+    shapes, the int8 checks, the tiny checks, the all-zero tile's bf16
+    against fp32)."""
     stats, int8 = {}, {}
     for name, cfg in serving_mode_configs().items():
         st, swapper = serve_mode(name, cfg, params)
@@ -1396,7 +1463,8 @@ def serving_modes(params: dict, gen):
     entries = {"K1": check_attention("K1", self_attention_smalld, k1, [], gen),
                "K2": check_attention("K2", wide_attention, k2, [], gen)}
     tiny = tiny_modes_reference()
-    return stats, entries, int8, tiny
+    zero = zero_tile_encode(params)
+    return stats, entries, int8, tiny, zero
 
 
 # ------------------------------------------------------------------ phase 10
@@ -1711,6 +1779,456 @@ def raw_path(params: dict) -> dict:
     del pipe, swapper
     torch.cuda.empty_cache()
     stats["tiny_card_vs_cpu"] = raw_tiny_reference()
+    return stats
+
+
+# ------------------------------------------------------------------ phase 11
+
+# The drivers at batch 1 (one pair a request), SwapConfig() at 512 px.
+DRIVER_BATCH = 1
+# within one level of 255: a driver's PNG against FaceSwapper.swap called
+# directly; a flagged response against the blur of the unflagged one (the
+# blur of a quantised image against the quantised blur, and the truncation)
+LEVEL = 1.0 / 255.0
+BLUR_LEVELS = 2.0 / 255.0
+HF_CLIP_PREFIX = "cond_stage_model.model."
+
+
+def batch1_shapes(cfg: SwapConfig):
+    """K1 per UNet forward and K2 per swap at batch 1, (BH, N, M, D), from
+    mode_plan(cfg, steps, batch=1)."""
+    plan = mode_plan(cfg, cfg.ddim_steps, batch=DRIVER_BATCH)
+    k1 = collections.Counter({(bh, n, n, d): c // plan["forwards"]
+                              for (bh, n, d), c in plan["K1"].items() if c})
+    return k1, plan["K2"]
+
+
+def photo_like(seed: int, h: int, w: int):
+    """(h, w, 3) uint8 with a photo's spectrum: a bicubic blow-up of coarse
+    noise plus grain (random noise would make the codecs' worst case)."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((1, 3, h // 16 + 2, w // 16 + 2), generator=g)
+    x = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False)[0]
+    x = x * 255 + torch.randn((3, h, w), generator=g) * 6
+    return x.clamp(0, 255).to(torch.uint8).permute(1, 2, 0).contiguous().numpy()
+
+
+def write_checkpoints(cpu_params: dict, d) -> dict:
+    """Phase 3's towers as the reference's files, from seeded weights: a
+    REFace last.ckpt (model.diffusion_model.*, first_stage_model.*, the
+    conditioner's keys without the CLIP tower, LitEma's model_ema.*,
+    global_step, optimizer_states, hyper_parameters), the CLIP tower as an
+    HF CLIP file, a face-parsing BiSeNet file, and a diffusers-layout
+    safety checker that flags nothing. Returns {name: path}."""
+    f32 = lambda t: t.float() if t.is_floating_point() else t
+    sd = {**{f"model.diffusion_model.{k}": f32(v) for k, v in cpu_params["unet"].items()},
+          **{f"first_stage_model.{k}": f32(v) for k, v in cpu_params["vae"].items()},
+          **{k: f32(v) for k, v in cpu_params["conditioner"].items()
+             if not k.startswith(HF_CLIP_PREFIX)}}
+    sd.update({"model_ema." + k.replace(".", ""): f32(v).clone()
+               for k, v in cpu_params["unet"].items() if v.is_floating_point()})
+    sd["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
+    files = {"last.ckpt": {"state_dict": sd, "global_step": 0, "epoch": 0,
+                           "optimizer_states": [{"state": {}, "param_groups": [{"lr": 1e-5}]}],
+                           "hyper_parameters": {"scale_factor": 0.18215, "seed": 0}},
+             "clip.pth": {k[len(HF_CLIP_PREFIX):]: f32(v)
+                          for k, v in cpu_params["conditioner"].items()
+                          if k.startswith(HF_CLIP_PREFIX)}}
+    bisenet = BiSeNet(BiSeNetConfig(), device="cuda")
+    init_params(bisenet, seed=5, dezero=True)
+    files["79999_iter.pth"] = {k: f32(v.cpu()) for k, v in bisenet.state_dict().items()}
+    safety = SafetyChecker(SafetyCheckerConfig(), device="cuda")
+    init_params(safety, seed=6, dezero=True)
+    g = torch.Generator().manual_seed(6)
+    tower = {}
+    for k, v in safety.state_dict().items():
+        if k.startswith("tower.vision_model."):
+            tower["vision_model.vision_model." + k[len("tower.vision_model."):]] = f32(v.cpu())
+        elif k == "tower.visual_projection.weight":
+            tower["visual_projection.weight"] = f32(v.cpu())
+    embeds = {"concept_embeds": torch.randn(17, 768, generator=g),
+              "special_care_embeds": torch.randn(3, 768, generator=g),
+              "special_care_embeds_weights": torch.full((3,), 2.0)}
+    # a cosine is at most 1: thresholds of 2 flag nothing (flag_everything
+    # sets them to -2 once the file is read)
+    files["safety_none.pth"] = {**tower, **embeds, "concept_embeds_weights": torch.full((17,), 2.0)}
+    del bisenet, safety
+    need = sum(t.numel() * t.element_size() for obj in (sd, files["clip.pth"], tower)
+               for t in obj.values() if isinstance(t, torch.Tensor)) + 2 * 2**30
+    free = shutil.disk_usage(d).free
+    print(f"  free space under {d}: {free / 2**30:.1f} GiB, the files need about "
+          f"{need / 2**30:.1f} GiB", flush=True)
+    if free < 2 * need:
+        fail(f"not enough free space for the checkpoint files: {free} < 2 x {need} bytes")
+    paths = {}
+    for name, obj in files.items():
+        t0 = time.perf_counter()
+        paths[name] = d / name
+        torch.save(obj, paths[name])
+        print(f"  wrote {name}: {paths[name].stat().st_size / 2**30:.3f} GiB in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return paths
+
+
+@contextlib.contextmanager
+def flag_everything():
+    """Inside the block, build_safety_checker gives the checker it reads
+    with its 17 concept thresholds at -2: a cosine is at least -1, so it
+    flags every image (the file is read as it stands; only the thresholds
+    change, in memory)."""
+    build = cli_common.build_safety_checker
+
+    def build_flagging(*a, **kw):
+        checker = build(*a, **kw)
+        with torch.no_grad():
+            checker.concept_embeds_weights.fill_(-2.0)
+        return checker
+
+    cli_common.build_safety_checker = build_flagging
+    try:
+        yield
+    finally:
+        cli_common.build_safety_checker = build
+
+
+def driver_args(*argv):
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    cli_common.add_model_args(ap)
+    ap.add_argument("--bisenet-ckpt", default=None)
+    return ap.parse_args(list(argv))
+
+
+def check_loaded(swapper, cpu_params: dict):
+    """Every tensor of the loaded towers equal to phase 3's after the
+    --weights-dtype cast (bfloat16: float32 entries rounded through it)."""
+    bad = []
+    for name, m in swapper.towers().items():
+        for k, v in m.state_dict().items():
+            want = cpu_params[name][k]
+            if want.dtype == torch.float32:
+                want = want.to(torch.bfloat16).float()
+            if not torch.equal(v.cpu(), want.to(v.dtype)):
+                bad.append(f"{name}.{k}")
+    if bad:
+        fail(f"the towers read from last.ckpt differ from phase 3's: {bad[:10]}")
+    return sum(len(m.state_dict()) for m in swapper.towers().values())
+
+
+def driver_launches(name, plan, requests: int):
+    """The launches of a driver run of `requests` requests against the plan."""
+    per_run = {"K1": collections.Counter({k: v * requests for k, v in plan["K1"].items()}),
+               "K2": collections.Counter({k: v * requests for k, v in plan["K2"].items()}),
+               "K3": plan["K3"] * requests}
+    return raw_request_launches(name, per_run)
+
+
+def geglu_erf(self, x):
+    """FeedForwardGEGLU with SD's exact erf gelu (the port's is tanh)."""
+    h, gate = torch.chunk(self.net[0].proj(x), 2, dim=-1)
+    return self.net[2](h * F.gelu(gate))
+
+
+def geglu_distance(swapper, cfg: SwapConfig) -> dict:
+    """ROADMAP C1: one full-width UNet forward (bf16, and an fp32 copy with
+    the same weights, where bf16's own rounding does not hide the form's
+    effect) and one whole DDIM-50 request at batch 1 (bf16), each with the
+    tanh gelu and with erf, on the same inputs and generator; the relative
+    L2 of eps and of the image."""
+    x9, t, ctx = unet_inputs(cfg, seed=13, ctx_batch=BATCH)
+    req = make_request(60, cfg.image_size, "cuda", batch=DRIVER_BATCH)
+    unet32 = fp32_copy(swapper.unet, UNetModel, dataclasses.replace(cfg.unet,
+                                                                    dtype=torch.float32))
+    runs = {}
+    for form in ("tanh", "erf"):
+        with contextlib.ExitStack() as stack:
+            if form == "erf":
+                stack.callback(setattr, FeedForwardGEGLU, "forward", FeedForwardGEGLU.forward)
+                FeedForwardGEGLU.forward = geglu_erf
+            with torch.inference_mode():
+                eps = swapper.unet(x9, t, ctx).float()
+                eps32 = unet32(x9, t, ctx)
+            img = swapper.swap(**req, generator=torch.Generator(device="cuda").manual_seed(4))
+            runs[form] = (eps, eps32, img)
+    del unet32
+    (e0, f0, i0), (e1, f1, i1) = runs["tanh"], runs["erf"]
+    out = {"eps_rel_l2": errors(e1, e0)[1], "eps_max_abs": errors(e1, e0)[0],
+           "eps_fp32_rel_l2": errors(f1, f0)[1], "eps_fp32_max_abs": errors(f1, f0)[0],
+           "eps_bf16_vs_fp32_rel_l2": errors(e0, f0)[1],
+           "image_rel_l2": errors(i1, i0)[1], "image_max_abs": errors(i1, i0)[0]}
+    print(f"  GEGLU erf against tanh (ROADMAP C1), phase 3's weights: one UNet forward at "
+          f"batch {BATCH}, eps rel L2 fp32 {out['eps_fp32_rel_l2']:.4e} (max abs "
+          f"{out['eps_fp32_max_abs']:.4e}), bf16 {out['eps_rel_l2']:.4e} (max abs "
+          f"{out['eps_max_abs']:.4e}; bf16 against fp32 with tanh: "
+          f"{out['eps_bf16_vs_fp32_rel_l2']:.4e}); one DDIM-50 request at batch "
+          f"{DRIVER_BATCH}, bf16, image rel L2 {out['image_rel_l2']:.4e} (max abs "
+          f"{out['image_max_abs']:.4e})", flush=True)
+    return out
+
+
+def server_breakdown(ckpt: list, bisenet, safety, upload) -> dict:
+    """Where a demo-server request's time goes: the server's steps called
+    one by one on a pipeline built from the same files (ms, events around
+    host work ending in a synchronise), the swap in the main thread and
+    then in fresh threads, as ThreadingHTTPServer runs each request in a
+    thread of its own."""
+    import concurrent.futures
+
+    import numpy as np
+
+    args = driver_args(*ckpt, "--bisenet-ckpt", str(bisenet), "--seed", "9")
+    pipe = cli_common.build_raw_pipeline(args, cli_common.build_swapper(args),
+                                         RawPipelineConfig())
+    checker = cli_common.build_safety_checker(str(safety), device="cuda")
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    src = timed("decode source", lambda: images.imdecode(upload[0]).astype(np.float32) / 255)
+    tgt = timed("decode target", lambda: images.imdecode(upload[1]).astype(np.float32) / 255)
+    swap = lambda: pipe.swap_images(tgt[None], src[None], generator=torch.Generator(
+        device="cuda").manual_seed(9))[0].cpu().numpy()
+    for name in ("swap, main thread", "swap, main thread again"):
+        out01 = timed(name, swap)
+    for i in range(2):
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+            ex.submit(timed, f"swap, fresh thread {i}", swap).result()
+    out01 = timed("safety checker", lambda: checker(out01[None])[0][0].cpu().numpy())
+    timed("PNG encode", lambda: images.imencode(
+        ".png", np.clip(out01 * 255, 0, 255).astype(np.uint8)))
+    print("  a server request's steps called one by one (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()), flush=True)
+    return ms
+
+
+def codec_times(img) -> dict:
+    """Host codec times at img's size (median of 5 calls, ms)."""
+    png, jpg = images.imencode(".png", img), images.imencode(".jpg", img)
+    runs = {"jpeg_decode": lambda: images.imdecode(jpg),
+            "png_decode": lambda: images.imdecode(png),
+            "png_encode": lambda: images.imencode(".png", img),
+            "jpeg_encode": lambda: images.imencode(".jpg", img)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(ts)[2]
+    out["png_bytes"], out["jpeg_bytes"] = len(png), len(jpg)
+    return out
+
+
+def post_upload(port: int, source: bytes, target: bytes):
+    """One multipart POST of two JPEG uploads; (status, body, seconds)."""
+    import urllib.request
+
+    boundary = "chipsmokeboundary"
+    body = b""
+    for name, data in (("source", source), ("target", target)):
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{name}\"; "
+                 f"filename=\"{name}.jpg\"\r\nContent-Type: image/jpeg\r\n\r\n").encode()
+        body += data + b"\r\n"
+    body += f"--{boundary}--\r\n".encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/process_images", data=body,
+                                 headers={"Content-Type": f"multipart/form-data; "
+                                                          f"boundary={boundary}"},
+                                 method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        data = resp.read()
+        return resp.status, resp.headers["Content-Type"], data, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def serving(argv):
+    """A demo server built from argv, serving on a thread until the block
+    ends; yields its port."""
+    import threading
+
+    server = demo_server.make_server(argv)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=60)
+        if th.is_alive():
+            fail("the demo server's thread did not stop")
+
+
+def drivers_path(cpu_params: dict, smi: str) -> dict:
+    """Phase 11: the user entry points on phase 3's towers. Returns its
+    stats; the launches of each driver run are held to mode_plan at batch 1
+    (the counts set to 0 before each run and read after it)."""
+    cfg = SwapConfig()
+    plan = mode_plan(cfg, cfg.ddim_steps, batch=DRIVER_BATCH)
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_drivers"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    stats = {}
+    try:
+        # (a) the reference's files, written and read back at full width
+        t0 = time.perf_counter()
+        paths = write_checkpoints(cpu_params, d)
+        stats["save_s"] = time.perf_counter() - t0
+        ckpt = ["--ckpt", str(paths["last.ckpt"]), "--clip-ckpt", str(paths["clip.pth"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swapper = cli_common.build_swapper(driver_args(*ckpt))
+        torch.cuda.synchronize()
+        stats["load_s"] = time.perf_counter() - t0
+        n = check_loaded(swapper, cpu_params)
+        sizes = {k: p.stat().st_size for k, p in paths.items()}
+        stats["file_bytes"] = sizes
+        print(f"  {smi}: wrote the files in {stats['save_s']:.2f} s; build_swapper(--ckpt "
+              f"last.ckpt --clip-ckpt clip.pth) read {sizes['last.ckpt'] / 2**30:.3f} + "
+              f"{sizes['clip.pth'] / 2**30:.3f} GiB onto the card in {stats['load_s']:.2f} s: "
+              f"all {n} tensors bit-equal to phase 3's after the bfloat16 cast", flush=True)
+
+        # (f) ROADMAP C1, on the towers just read
+        stats["geglu"] = geglu_distance(swapper, cfg)
+
+        # (b) cli.swap --precropped: one source, a PNG and a JPEG target
+        src = photo_like(70, cfg.image_size, cfg.image_size)
+        images.imwrite(d / "source.png", src)
+        (d / "targets").mkdir()
+        images.imwrite(d / "targets" / "t0.png", photo_like(71, cfg.image_size, cfg.image_size))
+        images.imwrite(d / "targets" / "t1.jpg", photo_like(72, cfg.image_size, cfg.image_size))
+        # FaceSwapper.swap called directly on the driver's first inputs and
+        # generator state; then this swapper leaves the card, so that the
+        # driver's peak holds its own swapper only
+        src01 = cli_swap._read01(str(d / "source.png"))
+        ref = clip_normalize(torch.from_numpy(src01[None]).cuda().permute(0, 3, 1, 2))
+        tgt = cli_swap._read01(str(d / "targets" / "t0.png"), cfg.image_size)[None] * 2 - 1
+        mask = cli_common.default_inpaint_mask(cfg.image_size)[None]
+        direct = swapper.swap(target_image=tgt, inpaint_image=tgt * mask, inpaint_mask=mask,
+                              ref_clip224=ref.permute(0, 2, 3, 1),
+                              generator=torch.Generator(device="cuda").manual_seed(5))
+        if not bool(torch.isfinite(direct).all()):
+            fail("FaceSwapper.swap on the driver's inputs is not finite")
+        want = ((direct[0].cpu() + 1) / 2).clamp(0, 1)
+        del swapper, direct, ref
+        torch.cuda.empty_cache()
+        argv = ["--precropped", *ckpt, "--seed", "5", "--source", str(d / "source.png"),
+                "--target", str(d / "targets"), "--outdir", str(d / "out")]
+        start_request()  # the precropped driver's run starts here
+        torch.cuda.reset_peak_memory_stats()
+        done = cli_swap.main(argv)
+        launches = driver_launches("cli.swap --precropped", plan, len(done))
+        peak = torch.cuda.max_memory_allocated()
+        outs = [images.imread(p) for p, _ in done]
+        if [o.shape for o in outs] != [(cfg.image_size, cfg.image_size, 3)] * 2:
+            fail(f"cli.swap --precropped wrote {[o.shape for o in outs]}")
+        diff = (torch.from_numpy(outs[0]).float() / 255 - want).abs().max().item()
+        print(f"  cli.swap --precropped (PNG and baseline-JPEG targets, {cfg.image_size} px, "
+              f"DDIM-{cfg.ddim_steps}, batch {DRIVER_BATCH}): first {done[0][1]:.3f} s, steady "
+              f"{done[1][1]:.3f} s (read, swap, write), peak {peak / 2**30:.2f} GiB; outputs "
+              f"{[o.shape for o in outs]} read back by the port's decoder; the PNG within "
+              f"{diff * 255:.3f} levels of FaceSwapper.swap called directly (limit 1); launches "
+              f"K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']} (as planned by "
+              f"shape, {len(done)} requests)", flush=True)
+        if diff > LEVEL + 1e-6:
+            fail(f"cli.swap's output is {diff * 255:.3f} levels from FaceSwapper.swap")
+        stats["cli_precropped"] = {"first_s": done[0][1], "steady_s": done[1][1],
+                                   "peak_gib": peak / 2**30, "launches": launches,
+                                   "levels_from_direct": diff * 255}
+        torch.cuda.empty_cache()
+
+        # (c) cli.swap raw mode: 1024 px JPEG targets, the BiSeNet file
+        raw_src = photo_like(73, RAW_SIZE, RAW_SIZE)
+        images.imwrite(d / "raw_source.png", raw_src)
+        (d / "raw_targets").mkdir()
+        for i in range(2):
+            images.imwrite(d / "raw_targets" / f"f{i}.jpg", photo_like(74 + i, RAW_SIZE, RAW_SIZE))
+        argv = [*ckpt, "--bisenet-ckpt", str(paths["79999_iter.pth"]), "--seed", "5",
+                "--source", str(d / "raw_source.png"), "--target", str(d / "raw_targets"),
+                "--outdir", str(d / "raw_out")]
+        start_request()  # the raw driver's run starts here
+        torch.cuda.reset_peak_memory_stats()
+        done = cli_swap.main(argv)
+        launches = driver_launches("cli.swap raw", plan, len(done))
+        peak = torch.cuda.max_memory_allocated()
+        shapes = [images.imread(p).shape for p, _ in done]
+        if shapes != [(RAW_SIZE, RAW_SIZE, 3)] * 2:
+            fail(f"cli.swap raw wrote {shapes}")
+        print(f"  cli.swap raw mode ({RAW_SIZE} px JPEG targets, --bisenet-ckpt): first "
+              f"{done[0][1]:.3f} s, steady {done[1][1]:.3f} s, peak {peak / 2**30:.2f} GiB; "
+              f"outputs {shapes}; launches K1 {launches['K1']} K2 {launches['K2']} K3 "
+              f"{launches['K3']} (as planned)", flush=True)
+        stats["cli_raw"] = {"first_s": done[0][1], "steady_s": done[1][1],
+                            "peak_gib": peak / 2**30, "launches": launches}
+        torch.cuda.empty_cache()
+
+        # (d) the demo server, raw mode, three 1024 px JPEG uploads
+        uploads = [(images.imencode(".jpg", photo_like(80 + 2 * i, RAW_SIZE, RAW_SIZE)),
+                    images.imencode(".jpg", photo_like(81 + 2 * i, RAW_SIZE, RAW_SIZE)))
+                   for i in range(3)]
+        server = [*ckpt, "--bisenet-ckpt", str(paths["79999_iter.pth"]), "--seed", "9",
+                  "--port", "0"]
+        torch.cuda.reset_peak_memory_stats()
+        lat, responses = [], []
+        with serving([*server, "--safety-ckpt", str(paths["safety_none.pth"])]) as port:
+            start_request()  # the server's run starts here
+            for source, target in uploads:
+                status, ctype, body, secs = post_upload(port, source, target)
+                if status != 200 or ctype != "image/png":
+                    fail(f"demo server answered {status} {ctype}: {body[:200]!r}")
+                img = images.imdecode(body)
+                if img.shape != (RAW_SIZE, RAW_SIZE, 3):
+                    fail(f"demo server's PNG is {img.shape}")
+                lat.append(secs)
+                responses.append(img)
+            launches = driver_launches("demo server", plan, len(uploads))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  demo server (raw, --safety-ckpt that flags nothing): 3 multipart POSTs of "
+              f"{RAW_SIZE} px JPEG pairs, status 200, PNGs of {responses[0].shape}; latency "
+              f"first {lat[0]:.3f} s, steady {sum(lat[1:]) / 2:.3f} s; peak "
+              f"{peak / 2**30:.2f} GiB; launches K1 {launches['K1']} K2 {launches['K2']} K3 "
+              f"{launches['K3']} (as planned)", flush=True)
+        with flag_everything(), serving([*server, "--safety-ckpt",
+                                         str(paths["safety_none.pth"])]) as port:
+            status, ctype, body, secs = post_upload(port, *uploads[0])
+        if status != 200:
+            fail(f"demo server with the flag-all checker answered {status}")
+        flagged = torch.from_numpy(images.imdecode(body)).float() / 255
+        plain = torch.from_numpy(responses[0]).float()[None].permute(0, 3, 1, 2) / 255
+        blurred = SafetyChecker.blur(plain)[0].permute(1, 2, 0)
+        blur_diff = (flagged - blurred).abs().max().item()
+        moved = (flagged - plain[0].permute(1, 2, 0)).abs().mean().item()
+        print(f"  the same first upload through a checker that flags every image: "
+              f"{blur_diff * 255:.3f} levels from the blur of the unflagged response (limit "
+              f"{BLUR_LEVELS * 255:.0f}), mean {moved * 255:.2f} levels from the unblurred",
+              flush=True)
+        if blur_diff > BLUR_LEVELS or moved * 255 < 1.0:
+            fail("the flagged response is not the blur of the unflagged one")
+        stats["demo_server"] = {"first_s": lat[0], "steady_s": sum(lat[1:]) / 2,
+                                "peak_gib": peak / 2**30, "launches": launches,
+                                "flagged_levels_from_blur": blur_diff * 255}
+        torch.cuda.empty_cache()
+        stats["demo_server"]["steps_ms"] = server_breakdown(
+            ckpt, paths["79999_iter.pth"], paths["safety_none.pth"], uploads[1])
+        torch.cuda.empty_cache()
+
+        # (e) the host codecs at 1024 px
+        stats["codecs_ms"] = codec_times(photo_like(90, RAW_SIZE, RAW_SIZE))
+        c = stats["codecs_ms"]
+        print(f"  {smi}: host codecs at {RAW_SIZE}x{RAW_SIZE} (median of 5, ms): JPEG decode "
+              f"{c['jpeg_decode']:.2f}, PNG decode {c['png_decode']:.2f}, PNG encode "
+              f"{c['png_encode']:.2f}, JPEG encode (q95) {c['jpeg_encode']:.2f}", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     return stats
 
 
@@ -2399,10 +2917,11 @@ def main():
     t9 = time.perf_counter()
     print(f"phase 9: the swap's other serving modes, SwapConfig() widths and phase 3's "
           f"weights, batch {BATCH}, one warm-up and one timed request each", flush=True)
-    mode_stats, tiled_entries, int8_stats, tiny_modes = serving_modes(params, gen)
+    mode_stats, tiled_entries, int8_stats, tiny_modes, zero_tile = serving_modes(params, gen)
     torch.cuda.empty_cache()
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s of wall", flush=True)
 
+    cpu_params = {n: {k: v.cpu() for k, v in sd.items()} for n, sd in params.items()}
     t10 = time.perf_counter()
     print(f"phase 10: the raw-image path (RawSwapPipeline), RawPipelineConfig() with phase "
           f"3's towers: swap_images at batch {BATCH} of {RAW_SIZE} px frames, "
@@ -2413,6 +2932,21 @@ def main():
     torch.cuda.empty_cache()
     raw_stats["wall_s"] = t10 = time.perf_counter() - t10
     print(f"  phase 10 took {t10:.1f} s of wall", flush=True)
+
+    t11 = time.perf_counter()
+    print(f"phase 11: the drivers on phase 3's towers at batch {DRIVER_BATCH}: a full-width "
+          f"last.ckpt written and read back, cli.swap --precropped and raw, the demo server, "
+          f"the host codecs, GEGLU erf against tanh", flush=True)
+    driver_stats = drivers_path(cpu_params, smi)
+    del cpu_params
+    k1_b1, k2_b1 = batch1_shapes(cfg)
+    print("  K1 and K2 at the batch-1 shapes (per UNet forward / per swap) against their "
+          "plain versions", flush=True)
+    b1_entries = {"K1": check_attention("K1", self_attention_smalld, k1_b1, [], gen),
+                  "K2": check_attention("K2", wide_attention, k2_b1, [], gen)}
+    torch.cuda.empty_cache()
+    driver_stats["wall_s"] = t11 = time.perf_counter() - t11
+    print(f"  phase 11 took {t11:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -2484,6 +3018,15 @@ def main():
             "swap_images batch 2": raw_stats["swap_images"]["launches"][key],
             **{f"swap_images_robust {m} batch {ROBUST_BATCH}": st["launches"][key]
                for m, st in raw_stats["robust"].items()}}
+    # phase 11: each kernel's launches in each driver's run (batch 1), and
+    # K1 / K2 at the batch-1 shapes
+    for row, key in zip(rows[:3], ("K1", "K2", "K3")):
+        row["launches_drivers"] = {name: driver_stats[name]["launches"][key] for name in (
+            "cli_precropped", "cli_raw", "demo_server")}
+    for row, key in zip(rows[:2], ("K1", "K2")):
+        row["batch1"] = {k: b1_entries[key][k] for k in (
+            "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
     for row, key in zip(rows[:2], ("K1", "K2")):
         row["tiles_1024"] = {k: tiled_entries[key][k] for k in (
             "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2565,9 +3108,15 @@ def main():
           f"{raw_stats['swap_images']['first_s']:.3f} s, steady "
           f"{raw_stats['swap_images']['steady_s']:.3f} s, peak "
           f"{raw_stats['swap_images']['peak_gib']:.2f} GiB, phase 10 {raw_stats['wall_s']:.1f} s; "
+          f"drivers (batch {DRIVER_BATCH}) cli.swap --precropped first "
+          f"{driver_stats['cli_precropped']['first_s']:.3f} s, steady "
+          f"{driver_stats['cli_precropped']['steady_s']:.3f} s, demo server first "
+          f"{driver_stats['demo_server']['first_s']:.3f} s, steady "
+          f"{driver_stats['demo_server']['steady_s']:.3f} s, phase 11 {driver_stats['wall_s']:.1f} s; "
           f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
-                      "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats}), flush=True)
+                      "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
+                      "zero_tile": zero_tile, "drivers": driver_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

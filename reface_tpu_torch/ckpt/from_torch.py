@@ -1,0 +1,176 @@
+"""The reference's torch checkpoints -> the port's state dicts (the reading
+half of reface_tpu/ckpt/convert.py).
+
+The port's modules carry the reference checkpoints' key names
+(tests/test_torch_port_models.py proves it against the JAX converter), so
+nothing is renamed here: keys are routed to their tower and checked.
+
+- `reface_state_dicts`: a REFace `last.ckpt` (ldm/models/diffusion/ddpm.py
+  layout) -> the {"unet", "vae", "conditioner"} state dicts that
+  `FaceSwapper.load_params` takes: the UNet under `model.diffusion_model.`,
+  the VAE under `first_stage_model.`, the conditioner's keys as they stand
+  (`cond_stage_model.*`, `face_ID_model.facenet.*`, the projections and the
+  null token); a standalone HF CLIP file is merged under
+  `cond_stage_model.`, a standalone ArcFace file replaces
+  `face_ID_model.facenet.*`. Every other key is ignored, as the JAX converter
+  ignores it: `model_ema.*` (LitEma's dot-less names), the CLIP text tower,
+  and the Lightning entries around the state dict.
+- `bisenet_state_dict`: face-parsing's `79999_iter.pth`.
+- `safety_state_dict`: diffusers' StableDiffusionSafetyChecker.
+- `expand_conv_in`: zero-pad a 4-channel SD conv_in to REFace's 9.
+- `load_swap_params` / `save_swap_params`: the port's own three state dicts
+  in one torch file (`--save-params`, read back by `--ckpt`).
+
+A key the tower needs and the file lacks raises CheckpointError naming the
+first 20; so does a tensor of the wrong shape (a 4-channel SD conv_in
+included, as in the JAX package: expand it first). Floating tensors come
+back in float32, as the JAX converter gives them; load_state_dict casts to
+each module's storage dtype.
+"""
+
+from __future__ import annotations
+
+import zipfile
+from typing import Mapping
+
+import torch
+
+__all__ = ["CheckpointError", "load_torch_state_dict", "expand_conv_in",
+           "reface_state_dicts", "bisenet_state_dict", "safety_state_dict",
+           "load_swap_params", "save_swap_params", "is_swap_params", "UNET_PREFIX",
+           "VAE_PREFIX"]
+
+UNET_PREFIX = "model.diffusion_model."
+VAE_PREFIX = "first_stage_model."
+_CLIP_PREFIX = "cond_stage_model."
+_ARCFACE_PREFIX = "face_ID_model.facenet."
+_TOWERS = ("unet", "vae", "conditioner")
+
+
+class CheckpointError(KeyError):
+    """A checkpoint lacks a key a module needs, or holds a wrong shape."""
+
+
+def load_torch_state_dict(path) -> dict:
+    """A torch checkpoint's state dict on the CPU, its `"state_dict"` entry
+    unwrapped (Lightning's layout).
+
+    The file is unpickled with weights_only=False, as the JAX package reads
+    it: a Lightning `last.ckpt` holds more than tensors (hyper-parameters,
+    optimizer states). Load only files you trust. A zip-format file (every
+    torch.save since 1.6) is memory-mapped, so a multi-GB checkpoint is
+    paged in as its tensors are read; an older file is read whole."""
+    obj = torch.load(path, map_location="cpu", weights_only=False,
+                     mmap=zipfile.is_zipfile(path))
+    if isinstance(obj, dict):
+        return dict(obj.get("state_dict", obj))
+    return obj
+
+
+def expand_conv_in(sd: dict, in_channels: int = 9,
+                   key: str = UNET_PREFIX + "input_blocks.0.0.weight") -> dict:
+    """Zero-pad a vanilla SD conv_in from 4 to `in_channels` input channels
+    (the reference's scripts/modify_checkpoints.py)."""
+    out = dict(sd)
+    w = out[key]
+    if w.shape[1] >= in_channels:
+        return out
+    pad = torch.zeros((w.shape[0], in_channels - w.shape[1]) + tuple(w.shape[2:]), dtype=w.dtype)
+    out[key] = torch.cat([w, pad], dim=1)
+    return out
+
+
+def _select(module: torch.nn.Module, source: Mapping, what: str) -> dict:
+    """The entries of `source` that `module`'s state dict names, shape-checked,
+    floating ones as float32."""
+    want = module.state_dict()
+    missing = [k for k in want if k not in source]
+    if missing:
+        lines = "\n".join(f"  {k}" for k in missing[:20])
+        raise CheckpointError(f"{what}: {len(missing)} keys missing (first 20):\n{lines}")
+    out = {}
+    for k, ref in want.items():
+        v = source[k]
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(v)
+        if tuple(v.shape) != tuple(ref.shape):
+            raise CheckpointError(f"{what}: shape mismatch {k}: {tuple(v.shape)} vs "
+                                  f"{tuple(ref.shape)}")
+        out[k] = v.float() if v.is_floating_point() else v
+    return out
+
+
+def _strip(sd: Mapping, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def reface_state_dicts(cfg, sd: Mapping, clip_sd: Mapping | None = None,
+                       arcface_sd: Mapping | None = None) -> dict:
+    """A REFace last.ckpt state dict (plus standalone CLIP / ArcFace state
+    dicts) -> {"unet", "vae", "conditioner"} state dicts for SwapConfig cfg
+    (the JAX convert_reface_checkpoint)."""
+    from reface_tpu_torch.pipelines.swap import SwapModules
+
+    towers = SwapModules(cfg, device="meta").towers()
+    cond_src = dict(sd)
+    if clip_sd:
+        cond_src.update({_CLIP_PREFIX + (k if k.startswith("model.") else f"model.{k}"): v
+                         for k, v in clip_sd.items()})
+    if arcface_sd:
+        cond_src = {k: v for k, v in cond_src.items() if not k.startswith(_ARCFACE_PREFIX)}
+        cond_src.update({_ARCFACE_PREFIX + k: v for k, v in arcface_sd.items()})
+    return {"unet": _select(towers["unet"], _strip(sd, UNET_PREFIX), "unet"),
+            "vae": _select(towers["vae"], _strip(sd, VAE_PREFIX), "vae"),
+            "conditioner": _select(towers["conditioner"], cond_src, "conditioner")}
+
+
+def bisenet_state_dict(sd: Mapping, config=None) -> dict:
+    """face-parsing's 79999_iter.pth (cp.*, ffm.*, conv_out*) -> the port's
+    BiSeNet state dict (the JAX convert_bisenet)."""
+    from reface_tpu_torch.nn.bisenet import BiSeNet, BiSeNetConfig
+
+    return _select(BiSeNet(config or BiSeNetConfig(), device="meta"), sd, "bisenet")
+
+
+def safety_state_dict(sd: Mapping, config=None) -> dict:
+    """diffusers' StableDiffusionSafetyChecker state dict -> the port's
+    SafetyChecker state dict (the JAX convert_safety_checker): the vision
+    tower and its projection under `tower.`, the concept and special-care
+    embeddings and thresholds as they are."""
+    from reface_tpu_torch.nn.safety import SafetyChecker, SafetyCheckerConfig
+
+    src = dict(sd)
+    for k, v in sd.items():
+        if k.startswith("vision_model.vision_model."):
+            src["tower.vision_model." + k[len("vision_model.vision_model."):]] = v
+    if "visual_projection.weight" in sd:
+        src["tower.visual_projection.weight"] = sd["visual_projection.weight"]
+    return _select(SafetyChecker(config or SafetyCheckerConfig(), device="meta"), src, "safety")
+
+
+def save_swap_params(path, params: Mapping) -> None:
+    """Write the port's {"unet", "vae", "conditioner"} state dicts to one
+    torch file (on the CPU), for `load_swap_params` / `--ckpt`."""
+    torch.save({name: {k: v.detach().cpu() for k, v in params[name].items()}
+                for name in _TOWERS}, path)
+
+
+def is_swap_params(obj) -> bool:
+    """Whether a loaded object is the port's own three state dicts."""
+    return (isinstance(obj, dict) and set(obj) == set(_TOWERS)
+            and all(isinstance(v, dict) for v in obj.values()))
+
+
+def load_swap_params(cfg, path, clip_path=None, arcface_path=None) -> dict:
+    """{"unet", "vae", "conditioner"} state dicts from a torch file: the
+    port's own (`save_swap_params`) or a REFace last.ckpt with optional
+    standalone CLIP and ArcFace files."""
+    from reface_tpu_torch.pipelines.swap import SwapModules
+
+    sd = load_torch_state_dict(path)
+    if is_swap_params(sd):
+        towers = SwapModules(cfg, device="meta").towers()
+        return {name: _select(towers[name], sd[name], name) for name in _TOWERS}
+    clip_sd = load_torch_state_dict(clip_path) if clip_path else None
+    arcface_sd = load_torch_state_dict(arcface_path) if arcface_path else None
+    return reface_state_dicts(cfg, sd, clip_sd, arcface_sd)

@@ -7,7 +7,10 @@ coordinate-map warps, TPS grids, mask LUTs, uint8 normalisation) and the
 ERT landmark cascade (dlib shape-predictor semantics, reface's own binary
 format; tools/convert_dlib_sp.py converts a dlib .dat offline).
 
-The library is built with g++ at first use, with native/Makefile's flags,
+`native/image_codec.cpp` holds the image codecs of io/images.py (the PNG
+unfilter, baseline JPEG decode and encode); `image_library()` loads it.
+
+Each library is built with g++ at first use, with native/Makefile's flags,
 into `build/torch_native/` at the repo root (listed in .gitignore), named by
 a hash of the source and the flags: an edited source is rebuilt. A failed
 build raises with g++'s output; nothing here falls back to another
@@ -27,6 +30,7 @@ import numpy as np
 __all__ = [
     "build",
     "library_path",
+    "image_library",
     "resize_bilinear",
     "remap_bilinear",
     "tps_grid",
@@ -40,28 +44,35 @@ __all__ = [
 ]
 
 _SRC = Path(__file__).resolve().parent / "native" / "reface_native.cpp"
+_IMAGE_SRC = Path(__file__).resolve().parent / "native" / "image_codec.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
 _FLAGS = ["-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall", "-std=c++17", "-shared"]
 _lib = None
+_image_lib = None
 
 
-def library_path() -> Path:
-    """Where the built library lives (built or not)."""
+def library_path(src: Path | None = None) -> Path:
+    """Where the library of `src` (default reface_native.cpp) lives, built
+    or not."""
+    src = src or _SRC
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return BUILD_DIR / f"libreface_native_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    stem = "libreface_native" if src == _SRC else f"lib{src.stem}"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is built; returns its path. Raises
-    RuntimeError with g++'s output if the build fails."""
-    out = library_path()
+def build(src: Path | None = None) -> Path:
+    """Compile the library of `src` (default reface_native.cpp) unless it is
+    built; returns its path. Raises RuntimeError with g++'s output if the
+    build fails."""
+    src = src or _SRC
+    out = library_path(src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        proc = subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
+        proc = subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
     except FileNotFoundError as e:
         raise RuntimeError("native library build failed: g++ not found") from e
@@ -104,6 +115,26 @@ def _load():
     lib.rn_ert_predict_batch.argtypes = [u8p] + [ctypes.c_int] * 3 + [f32p, f32p]
     lib.rn_ert_predict_batch.restype = ctypes.c_int
     _lib = lib
+    return lib
+
+
+def image_library():
+    """The image-codec library (native/image_codec.cpp), built at first use."""
+    global _image_lib
+    if _image_lib is not None:
+        return _image_lib
+    lib = ctypes.CDLL(str(build(_IMAGE_SRC)))
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.ic_png_unfilter.argtypes = [u8p] + [ctypes.c_int] * 3 + [u8p]
+    lib.ic_png_unfilter.restype = ctypes.c_int
+    lib.ic_jpeg_info.argtypes = [u8p, ctypes.c_long] + [i32p] * 4
+    lib.ic_jpeg_info.restype = ctypes.c_int
+    lib.ic_jpeg_decode.argtypes = [u8p, ctypes.c_long] + [ctypes.c_int] * 3 + [u8p]
+    lib.ic_jpeg_decode.restype = ctypes.c_int
+    lib.ic_jpeg_encode.argtypes = [u8p] + [ctypes.c_int] * 4 + [u8p, ctypes.c_long]
+    lib.ic_jpeg_encode.restype = ctypes.c_long
+    _image_lib = lib
     return lib
 
 

@@ -230,11 +230,11 @@ class FaceSwapper(SwapModules):
     """SwapModules + weights + sampler tables, exposing `swap`.
 
     params: {"unet", "vae", "conditioner"} state dicts; None gives a seeded
-    random init (init_params, seed 0).
+    random init (init_params, `seed` plus the tower's index).
     """
 
     def __init__(self, config: SwapConfig, params: dict | None = None,
-                 device=None):
+                 device=None, seed: int = 0):
         if config.sampler not in SAMPLERS:
             raise ValueError(f"sampler={config.sampler!r}: expected one of {SAMPLERS}")
         if config.sampler in ("plms", "dpm") and config.eta != 0.0:
@@ -246,7 +246,7 @@ class FaceSwapper(SwapModules):
         super().__init__(config, device)
         if params is None:
             for i, m in enumerate(self.towers().values()):
-                init_params(m, seed=i)
+                init_params(m, seed=seed + i)
         else:
             self.load_params(params)
         self.schedule = DiffusionSchedule.create()

@@ -126,7 +126,10 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.nn.landmarks, reface_tpu_torch.pipelines.raw, "
         "reface_tpu_torch.nn.bisenet, reface_tpu_torch.preprocess.align, "
         "reface_tpu_torch.preprocess.detect, reface_tpu_torch.preprocess.masks, "
-        "reface_tpu_torch.native_ops\n"
+        "reface_tpu_torch.native_ops, reface_tpu_torch.cli.common, "
+        "reface_tpu_torch.cli.swap, reface_tpu_torch.cli.demo_server, "
+        "reface_tpu_torch.ckpt.from_torch, reface_tpu_torch.core.config, "
+        "reface_tpu_torch.io.images, reface_tpu_torch.nn.safety\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
