@@ -99,6 +99,24 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      mode_plan(cfg, 50, batch=1); K1 and K2 at the batch-1 shapes against
      their plain versions; the host codecs' times at 1024 px; the files
      deleted at the end;
+  12. (run after phase 11) the reference's test bench on phase 3's towers:
+     a CelebA-style tree of 12 pairs (1024 px baseline JPEGs, 512 px
+     19-class masks) and an FFHQ-style tree of 2 (512 px PNGs) written by
+     the port's encoders, seeded eval towers written as the reference's
+     files (an HF CLIP ViT-B/32 file, Hopenet with fc_finetune,
+     Deep3DFaceRecon's net_recon.*, ArcFace) and the towers' state dicts;
+     FaceSwapper.swap called directly on the driver's two batches (the
+     tail of 2 padded to 10), then cli.inference_test_bench --n-samples 10
+     --num-pairs 12 once to warm up and once timed: the 12 PNGs
+     {sid}_{tid}.png, none for the padded rows, each within one level of
+     the direct swap; the FFHQ tree at --n-samples 2; each run's K1 and K2
+     launches by shape and K3's by count against mode_plan at its batch;
+     cli.evaluate --metrics fid id pose expression on the results, the
+     four metrics finite and no kernel launched, each metric's images/s;
+     each eval tower read from its file on the card against the CPU port
+     (fp32 ResNet-50s with TF32 off, bf16 CLIP and IR-SE-50, EVAL_TOL);
+     K1 and K2 at the batch-10 shapes against their plain versions; the
+     files deleted at the end;
   6. the training kernels against their plain versions at the shapes of the
      UNet's self-attention in training (batch 4: (BH,N,D) = (32,4096,40) and
      (32,1024,80), and ragged ones at d = 40 and 80), of the VAE decoder's
@@ -149,10 +167,19 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from reface_tpu_torch.ckpt.from_torch import save_swap_params
 from reface_tpu_torch.cli import common as cli_common
 from reface_tpu_torch.cli import demo_server
+from reface_tpu_torch.cli import evaluate as cli_evaluate
+from reface_tpu_torch.cli import inference_test_bench as cli_test_bench
 from reface_tpu_torch.cli import swap as cli_swap
+from reface_tpu_torch.data import TestBenchConfig, TestBenchDataset, collate
+from reface_tpu_torch.eval import CLIP_B32, FaceReconCoeffNet, Hopenet
+from reface_tpu_torch.eval import expression_coeffs, pose_angles, protocol as eval_protocol
+from reface_tpu_torch.eval.fid import clip_features
 from reface_tpu_torch.io import images
+from reface_tpu_torch.nn.arcface import IRSE50, ArcFaceConfig
+from reface_tpu_torch.nn.clip import CLIPVisionTower
 from reface_tpu_torch.nn.bisenet import BiSeNet, BiSeNetConfig, parse_faces
 from reface_tpu_torch.nn.conditioner import REFaceConditioner
 from reface_tpu_torch.nn.landmarks import LandmarkNet
@@ -1794,10 +1821,10 @@ BLUR_LEVELS = 2.0 / 255.0
 HF_CLIP_PREFIX = "cond_stage_model.model."
 
 
-def batch1_shapes(cfg: SwapConfig):
-    """K1 per UNet forward and K2 per swap at batch 1, (BH, N, M, D), from
-    mode_plan(cfg, steps, batch=1)."""
-    plan = mode_plan(cfg, cfg.ddim_steps, batch=DRIVER_BATCH)
+def batch_shapes(cfg: SwapConfig, batch: int):
+    """K1 per UNet forward and K2 per swap at `batch`, (BH, N, M, D), from
+    mode_plan(cfg, steps, batch)."""
+    plan = mode_plan(cfg, cfg.ddim_steps, batch=batch)
     k1 = collections.Counter({(bh, n, n, d): c // plan["forwards"]
                               for (bh, n, d), c in plan["K1"].items() if c})
     return k1, plan["K2"]
@@ -2227,6 +2254,258 @@ def drivers_path(cpu_params: dict, smi: str) -> dict:
         print(f"  {smi}: host codecs at {RAW_SIZE}x{RAW_SIZE} (median of 5, ms): JPEG decode "
               f"{c['jpeg_decode']:.2f}, PNG decode {c['png_decode']:.2f}, PNG encode "
               f"{c['png_encode']:.2f}, JPEG encode (q95) {c['jpeg_encode']:.2f}", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return stats
+
+
+# ------------------------------------------------------------------ phase 12
+
+# The reference's test bench (inference_test_bench.sh, evaluate_all.sh) at
+# full width: 12 CelebA-style pairs at --n-samples 10, one full batch and a
+# ragged tail of 2 padded to 10; an FFHQ-style tree at --n-samples 2.
+BENCH_BATCH = 10
+BENCH_PAIRS = 12
+FFHQ_BATCH = 2
+# the eval towers on the card against the CPU port, relative L2 of their
+# outputs on EVAL_FILES of the swaps: the fp32 ResNet-50s (TF32 off) at
+# fp32's summation-order distance, bf16 CLIP and IR-SE-50 at the distance
+# phase 4 allows a bf16 tower from fp32 (TOWER_TOL)
+EVAL_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+EVAL_FILES = 4
+
+
+def mask19(size: int):
+    """A CelebAMask-HQ-style 19-class mask (uint8): skin, brows, eyes, nose,
+    mouth, lips, ears, hair above, neck below."""
+    ys, xs = torch.meshgrid(torch.arange(size), torch.arange(size), indexing="ij")
+    c, r = size // 2, size // 3
+    m = torch.zeros(size, size, dtype=torch.uint8)
+    m[(ys - c) ** 2 + (xs - c) ** 2 < r * r] = 1
+    for label, (y0, y1, x0, x1) in {
+            6: (-r // 2, -r // 3, -r // 2, -r // 6), 7: (-r // 2, -r // 3, r // 6, r // 2),
+            4: (-r // 3, -r // 6, -r // 2, -r // 4), 5: (-r // 3, -r // 6, r // 4, r // 2),
+            2: (-r // 8, r // 6, -r // 10, r // 10), 11: (r // 4, r // 3, -r // 4, r // 4),
+            12: (r // 3, r // 2, -r // 4, r // 4), 10: (r // 4 + 2, r // 3, -r // 6, r // 6),
+            8: (-r // 6, r // 6, -r - 8, -r + 4), 9: (-r // 6, r // 6, r - 4, r + 8)}.items():
+        m[c + y0:c + y1, c + x0:c + x1] = label
+    m[:c - r] = 13
+    m[c + r:, c - r // 2:c + r // 2] = 17
+    return m.numpy()
+
+
+def write_test_bench(d) -> dict:
+    """A CelebA-style tree (CelebA-HQ-img/{id}.jpg, baseline JPEGs at 1024
+    px; CelebA-HQ-mask/Overall_mask/{id}.png at 512 px) of BENCH_PAIRS pairs
+    and an FFHQ-style one (images512/, BiSeNet_mask/, 512 px PNGs) of
+    FFHQ_BATCH, written by the port's encoders."""
+    trees = {"celeba": TestBenchConfig(str(d / "celeba"), "celeba", num_pairs=BENCH_PAIRS),
+             "ffhq": TestBenchConfig(str(d / "ffhq"), "ffhq", num_pairs=FFHQ_BATCH)}
+    mask = mask19(512)
+    for name, size in (("celeba", 1024), ("ffhq", 512)):
+        cfg = trees[name]
+        for k, i in enumerate(i for pair in cfg.pair_ids() for i in pair):
+            for path, arr in ((cfg.img_path(i), photo_like(200 + k, size, size)),
+                              (cfg.mask_path(i), mask)):
+                Path(path).parent.mkdir(parents=True, exist_ok=True)
+                images.imwrite(path, arr)
+    return trees
+
+
+def write_eval_towers(d) -> dict:
+    """Seeded eval towers as the reference's files: an HF CLIPModel B/32 file
+    (the vision tower with a text-side entry and logit_scale), Hopenet with
+    its fc_finetune head, Deep3DFaceRecon's net_recon.backbone.* with the
+    seven net_recon.final_layers.*, and ArcFace's IR-SE-50. Returns the
+    cli.evaluate flags."""
+    f32 = lambda sd: {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+                      for k, v in sd.items()}
+    clip = CLIPVisionTower(CLIP_B32, device="cuda")
+    hopenet = Hopenet(device="cuda")
+    facerecon = FaceReconCoeffNet(device="cuda")
+    arcface = IRSE50(ArcFaceConfig(), device="cuda")
+    for seed, m in enumerate((clip, hopenet, facerecon, arcface)):
+        init_params(m, seed=30 + seed)
+    files = {
+        "clip": {**f32(clip.state_dict()), "logit_scale": torch.tensor(4.6052),
+                 "text_projection.weight": torch.zeros(512, 512)},
+        "hopenet": {**f32(hopenet.state_dict()), "fc_finetune.weight": torch.zeros(66, 2048),
+                    "fc_finetune.bias": torch.zeros(66)},
+        "facerecon": {("net_recon." if k.startswith("final_layers.") else
+                       "net_recon.backbone.") + k: v
+                      for k, v in f32(facerecon.state_dict()).items()},
+        "arcface": f32(arcface.state_dict()),
+    }
+    flags = []
+    for name, sd in files.items():
+        path = d / f"{name}.pth"
+        torch.save(sd, path)
+        flags += [f"--{name}-ckpt", str(path)]
+    return flags
+
+
+def bench_batches(ds, batch: int):
+    """The driver's batches: in order, the ragged tail padded with its last
+    item (cli.inference_test_bench)."""
+    for lo in range(0, len(ds), batch):
+        items = [ds[i] for i in range(lo, min(lo + batch, len(ds)))]
+        yield collate(items + [items[-1]] * (batch - len(items)))
+
+
+def eval_card_vs_cpu(flags: list, swaps: list, masks: list) -> dict:
+    """Each eval tower read from its file on the card and on the CPU, their
+    outputs on the first EVAL_FILES swaps (through the protocol's loaders),
+    relative L2, held to EVAL_TOL."""
+    ckpt = dict(zip(flags[0::2], flags[1::2]))
+    paths = swaps[:EVAL_FILES]
+    runs = {
+        "fid": ("bf16", lambda m: clip_features(m, eval_protocol.clip_fid_load(paths))),
+        "id": ("bf16", lambda m: eval_protocol.id_embed_protocol(
+            m, eval_protocol.id_masked_112_load(paths, masks[:EVAL_FILES]))),
+        "pose": ("fp32", lambda m: pose_angles(m, eval_protocol.hopenet_load(paths))),
+        "expression": ("fp32", lambda m: expression_coeffs(m, eval_protocol.expression_load(paths))),
+    }
+    flag = {"fid": "--clip-ckpt", "id": "--arcface-ckpt", "pose": "--hopenet-ckpt",
+            "expression": "--facerecon-ckpt"}
+    out = {}
+    for metric, (kind, fn) in runs.items():
+        card, cpu = (torch.from_numpy(fn(cli_evaluate.build_tower(metric, ckpt[flag[metric]], dev)))
+                     .double() for dev in ("cuda", "cpu"))
+        rel = ((card - cpu).norm() / cpu.norm()).item()
+        print(f"  {metric} tower ({kind}) on the card against the CPU port, {EVAL_FILES} "
+              f"swaps: rel L2 {rel:.3e} (tol {EVAL_TOL[kind]:.0e}), max abs "
+              f"{(card - cpu).abs().max().item():.3e}", flush=True)
+        if not rel <= EVAL_TOL[kind]:
+            fail(f"the {metric} tower on the card is {rel:.3e} from the CPU port")
+        out[metric] = rel
+    return out
+
+
+def test_bench_path(cpu_params: dict, smi: str) -> dict:
+    """Phase 12: cli.inference_test_bench and cli.evaluate on phase 3's towers
+    at full width. Returns its stats; the launches of each driver run are
+    held to mode_plan at its batch (the counts set to 0 before the run and
+    read after it)."""
+    cfg = SwapConfig()
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_bench"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    stats = {}
+    try:
+        t0 = time.perf_counter()
+        trees = write_test_bench(d)
+        eval_flags = write_eval_towers(d)
+        save_swap_params(d / "params.pt", cpu_params)
+        ckpt = ["--ckpt", str(d / "params.pt")]
+        stats["write_s"] = time.perf_counter() - t0
+        print(f"  wrote {2 * BENCH_PAIRS} 1024 px JPEGs and their 512 px masks, "
+              f"{2 * FFHQ_BATCH} 512 px PNG pairs, the four eval towers' files and the "
+              f"towers' state dicts in {stats['write_s']:.2f} s", flush=True)
+
+        # (a) FaceSwapper.swap called directly on the driver's batches (the
+        # tail padded) with the driver's generator; then this swapper leaves
+        # the card, so that the driver's peak holds its own swapper only
+        swapper = cli_common.build_swapper(driver_args(*ckpt))
+        ds = TestBenchDataset(dataclasses.replace(trees["celeba"], image_size=cfg.image_size))
+        gen = torch.Generator(device="cuda").manual_seed(42)  # the driver's --seed
+        direct = []
+        for b in bench_batches(ds, BENCH_BATCH):
+            out = swapper.swap(target_image=b["target_image"], inpaint_image=b["inpaint_image"],
+                               inpaint_mask=b["inpaint_mask"], ref_clip224=b["ref_clip224"],
+                               generator=gen)
+            if not bool(torch.isfinite(out).all()):
+                fail("FaceSwapper.swap on the test bench's batch is not finite")
+            direct.append(((out.cpu() + 1) / 2).clamp(0, 1))
+        direct = torch.cat(direct)[:len(ds)]
+        del swapper, out
+        torch.cuda.empty_cache()
+
+        # (b) the driver: a warm-up run, then the timed one
+        argv = [*ckpt, "--dataset-dir", trees["celeba"].dataset_dir, "--dataset", "celeba",
+                "--n-samples", str(BENCH_BATCH), "--num-pairs", str(BENCH_PAIRS)]
+        t0 = time.perf_counter()
+        cli_test_bench.main([*argv, "--outdir", str(d / "warm")])
+        warm_s = time.perf_counter() - t0
+        start_request()  # the timed run starts here
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        times, loop_s = cli_test_bench.main([*argv, "--outdir", str(d / "out")])
+        wall = time.perf_counter() - t0
+        launches = driver_launches("cli.inference_test_bench celeba", mode_plan(
+            cfg, cfg.ddim_steps, batch=BENCH_BATCH), len(times))
+        peak = torch.cuda.max_memory_allocated()
+        names = [f"{sid}_{tid}.png" for tid, sid in ds.pairs]
+        got = sorted(p.name for p in (d / "out" / "results").iterdir())
+        if got != sorted(names) or len(times) != 2:
+            fail(f"cli.inference_test_bench wrote {got} in {len(times)} batches")
+        outs = torch.stack([torch.from_numpy(images.imread(d / "out" / "results" / n))
+                            for n in names]).float() / 255
+        diff = (outs - direct).abs().max().item()
+        print(f"  cli.inference_test_bench --n-samples {BENCH_BATCH} --num-pairs {BENCH_PAIRS} "
+              f"(CelebA-style, 1024 px JPEGs, {cfg.image_size} px, DDIM-{cfg.ddim_steps}): "
+              f"warm-up run {warm_s:.2f} s; timed run {wall:.2f} s, its loop {loop_s:.3f} s "
+              f"(loader included): {BENCH_PAIRS / loop_s:.3f} swaps/s; batches "
+              f"{', '.join(f'{t:.3f}' for t in times)} s (the second padded from 2; from the "
+              f"loader's hand-over), {BENCH_PAIRS / sum(times):.3f} swaps/s over the batches, "
+              f"{BENCH_BATCH / times[0]:.3f} swaps/s in the full one, peak {peak / 2**30:.2f} GiB; {len(got)} PNGs "
+              f"{{sid}}_{{tid}}.png, within {diff * 255:.3f} levels of FaceSwapper.swap called "
+              f"directly (limit 1); launches K1 {launches['K1']} K2 {launches['K2']} K3 "
+              f"{launches['K3']} (as planned by shape, 2 batches of {BENCH_BATCH})", flush=True)
+        if diff > LEVEL + 1e-6:
+            fail(f"cli.inference_test_bench's output is {diff * 255:.3f} levels from "
+                 "FaceSwapper.swap")
+        stats["celeba"] = {"warm_s": warm_s, "wall_s": wall, "loop_s": loop_s, "batch_s": times,
+                           "swaps_per_s": BENCH_PAIRS / loop_s,
+                           "swaps_per_s_batches": BENCH_PAIRS / sum(times),
+                           "swaps_per_s_full_batch": BENCH_BATCH / times[0],
+                           "peak_gib": peak / 2**30, "launches": launches,
+                           "levels_from_direct": diff * 255}
+        torch.cuda.empty_cache()
+
+        # (c) the FFHQ-style tree at --n-samples 2
+        start_request()
+        times, _ = cli_test_bench.main([*ckpt, "--dataset-dir", trees["ffhq"].dataset_dir,
+                                     "--dataset", "ffhq", "--n-samples", str(FFHQ_BATCH),
+                                     "--num-pairs", str(FFHQ_BATCH), "--outdir",
+                                     str(d / "ffhq_out")])
+        launches = driver_launches("cli.inference_test_bench ffhq", mode_plan(
+            cfg, cfg.ddim_steps, batch=FFHQ_BATCH), len(times))
+        got = sorted(p.name for p in (d / "ffhq_out" / "results").iterdir())
+        want = sorted(f"{s}_{t}.png" for t, s in trees["ffhq"].pair_ids())
+        if got != want:
+            fail(f"cli.inference_test_bench (ffhq) wrote {got}, not {want}")
+        print(f"  cli.inference_test_bench --dataset ffhq --n-samples {FFHQ_BATCH} (512 px "
+              f"PNGs): batch {times[0]:.3f} s; {got}; launches K1 {launches['K1']} K2 "
+              f"{launches['K2']} K3 {launches['K3']} (as planned)", flush=True)
+        stats["ffhq"] = {"batch_s": times[0], "launches": launches}
+        torch.cuda.empty_cache()
+
+        # (d) cli.evaluate on the CelebA results: the four metrics, finite;
+        # the eval towers launch none of the port's kernels
+        start_request()
+        args = cli_evaluate.parse_args(
+            ["--results-dir", str(d / "out" / "results"), "--dataset-dir",
+             trees["celeba"].dataset_dir, "--dataset", "celeba", "--metrics", "fid", "id",
+             "pose", "expression", *eval_flags])
+        t0 = time.perf_counter()
+        metrics, seconds = cli_evaluate.run(args)
+        eval_s = time.perf_counter() - t0
+        raw_request_launches("cli.evaluate", {"K1": collections.Counter(),
+                                              "K2": collections.Counter(), "K3": 0})
+        if len(metrics) != 6 or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"cli.evaluate gave {metrics}")
+        rates = {m: n / secs for m, (n, secs) in seconds.items()}
+        print(f"  cli.evaluate --metrics fid id pose expression (towers read from the "
+              f"reference-layout files) in {eval_s:.2f} s: {json.dumps(metrics)}; images/s "
+              + ", ".join(f"{m} {r:.1f} ({seconds[m][0]} images)" for m, r in rates.items())
+              + "; no kernel launched", flush=True)
+        stats["evaluate"] = {"metrics": metrics, "wall_s": eval_s, "images_per_s": rates,
+                             "images": {m: n for m, (n, _) in seconds.items()}}
+
+        # (e) the towers on the card against the CPU port, on the same files
+        swaps = [str(d / "out" / "results" / n) for n in names]
+        masks = [trees["celeba"].mask_path(t) for t, _ in ds.pairs]
+        stats["evaluate"]["card_vs_cpu_rel_l2"] = eval_card_vs_cpu(eval_flags, swaps, masks)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     return stats
@@ -2938,8 +3217,7 @@ def main():
           f"last.ckpt written and read back, cli.swap --precropped and raw, the demo server, "
           f"the host codecs, GEGLU erf against tanh", flush=True)
     driver_stats = drivers_path(cpu_params, smi)
-    del cpu_params
-    k1_b1, k2_b1 = batch1_shapes(cfg)
+    k1_b1, k2_b1 = batch_shapes(cfg, DRIVER_BATCH)
     print("  K1 and K2 at the batch-1 shapes (per UNet forward / per swap) against their "
           "plain versions", flush=True)
     b1_entries = {"K1": check_attention("K1", self_attention_smalld, k1_b1, [], gen),
@@ -2947,6 +3225,22 @@ def main():
     torch.cuda.empty_cache()
     driver_stats["wall_s"] = t11 = time.perf_counter() - t11
     print(f"  phase 11 took {t11:.1f} s of wall", flush=True)
+
+    t12 = time.perf_counter()
+    print(f"phase 12: the reference's test bench on phase 3's towers: "
+          f"cli.inference_test_bench at --n-samples {BENCH_BATCH} on {BENCH_PAIRS} CelebA-style "
+          f"pairs and at {FFHQ_BATCH} on an FFHQ-style tree, cli.evaluate with CLIP-FID, ID "
+          f"retrieval, pose and expression, the eval towers card vs CPU", flush=True)
+    bench_stats = test_bench_path(cpu_params, smi)
+    del cpu_params
+    k1_b10, k2_b10 = batch_shapes(cfg, BENCH_BATCH)
+    print(f"  K1 and K2 at the batch-{BENCH_BATCH} shapes (per UNet forward / per swap) against "
+          "their plain versions", flush=True)
+    b10_entries = {"K1": check_attention("K1", self_attention_smalld, k1_b10, [], gen),
+                   "K2": check_attention("K2", wide_attention, k2_b10, [], gen)}
+    torch.cuda.empty_cache()
+    bench_stats["wall_s"] = t12 = time.perf_counter() - t12
+    print(f"  phase 12 took {t12:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -3025,6 +3319,17 @@ def main():
             "cli_precropped", "cli_raw", "demo_server")}
     for row, key in zip(rows[:2], ("K1", "K2")):
         row["batch1"] = {k: b1_entries[key][k] for k in (
+            "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    # phase 12: each kernel's launches in the test bench's timed run (two
+    # batches of 10) and the FFHQ run (one of 2), and K1 / K2 at the
+    # batch-10 shapes
+    for row, key in zip(rows[:3], ("K1", "K2", "K3")):
+        row["launches_test_bench"] = {
+            f"celeba batch {BENCH_BATCH} (2 batches)": bench_stats["celeba"]["launches"][key],
+            f"ffhq batch {FFHQ_BATCH}": bench_stats["ffhq"]["launches"][key]}
+    for row, key in zip(rows[:2], ("K1", "K2")):
+        row[f"batch{BENCH_BATCH}"] = {k: b10_entries[key][k] for k in (
             "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
     for row, key in zip(rows[:2], ("K1", "K2")):
@@ -3113,10 +3418,13 @@ def main():
           f"{driver_stats['cli_precropped']['steady_s']:.3f} s, demo server first "
           f"{driver_stats['demo_server']['first_s']:.3f} s, steady "
           f"{driver_stats['demo_server']['steady_s']:.3f} s, phase 11 {driver_stats['wall_s']:.1f} s; "
-          f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"test bench (batch {BENCH_BATCH}) {bench_stats['celeba']['swaps_per_s']:.3f} swaps/s, "
+          f"peak {bench_stats['celeba']['peak_gib']:.2f} GiB, phase 12 "
+          f"{bench_stats['wall_s']:.1f} s; wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
                       "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
-                      "zero_tile": zero_tile, "drivers": driver_stats}), flush=True)
+                      "zero_tile": zero_tile, "drivers": driver_stats,
+                      "test_bench": bench_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -29,7 +29,8 @@ import torch
 __all__ = ["unet_from_jax", "vae_from_jax", "clip_conditioner_from_jax",
            "arcface_from_jax", "conditioner_from_jax", "lpips_from_jax",
            "landmark_head_from_jax", "swap_from_jax", "bisenet_from_jax",
-           "landmark_net_from_jax"]
+           "landmark_net_from_jax", "clip_vision_from_jax", "resnet50_from_jax",
+           "hopenet_from_jax", "facerecon_from_jax"]
 
 _ID = lambda a: a
 _NORM = {"scale": "weight", "bias": "bias"}
@@ -236,6 +237,16 @@ def clip_conditioner_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return _convert(tree, _clip_rule)
 
 
+def clip_vision_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A standalone CLIPVisionTower's params (eval's CLIP_B32) -> the port's
+    CLIPVisionTower state dict (`vision_model.*`, `visual_projection.*`)."""
+    def rule(p):
+        key, fn = _clip_rule(["tower"] + p)
+        return key[len("model."):], fn
+
+    return _convert(tree, rule)
+
+
 # ---------------------------------------------------------------- ArcFace
 
 def _nhwc_flat_to_nchw_flat(kernel, side: int = 7):
@@ -425,6 +436,63 @@ _PROJ = {"proj_out_source": "proj_out_source",
          "proj_out_target": "proj_out_target",
          "id_proj_out": "ID_proj_out",
          "landmark_proj_out": "landmark_proj_out"}
+
+
+# ------------------------------------------------------ ResNet-50 evals
+
+def _resnet50_rule(p):
+    """reface_tpu/eval/backbones.py's ResNet50 (under "trunk" in Hopenet and
+    FaceReconCoeffNet) -> torchvision's names (convert.py `_resnet50_rule`)."""
+    if p[0] == "trunk":
+        p = p[1:]
+    leaf, top = p[-1], p[0]
+    if top == "conv1":
+        return "conv1.weight", _conv
+    if top == "bn1":
+        return f"bn1.{_BN_LEAF[leaf]}", _ID
+    if top in ("fc_yaw", "fc_pitch", "fc_roll"):
+        return f"{top}.{_tw(leaf)}", _xform(leaf, "linear")
+    m = re.match(r"layer(\d)_(\d+)$", top)
+    if m:
+        B = f"layer{m.group(1)}.{m.group(2)}"
+        sub = p[1]
+        if sub in ("conv1", "conv2", "conv3"):
+            return f"{B}.{sub}.weight", _conv
+        if sub in ("bn1", "bn2", "bn3"):
+            return f"{B}.{sub}.{_BN_LEAF[leaf]}", _ID
+        if sub == "down_conv":
+            return f"{B}.downsample.0.weight", _conv
+        if sub == "down_bn":
+            return f"{B}.downsample.1.{_BN_LEAF[leaf]}", _ID
+    raise ValueError(f"unmapped resnet50 path {'/'.join(p)}")
+
+
+def resnet50_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """ResNet50's or Hopenet's params (the trunk and the fc_yaw / fc_pitch /
+    fc_roll heads) -> the port's state dict."""
+    return _convert(tree, _resnet50_rule)
+
+
+hopenet_from_jax = resnet50_from_jax
+
+
+def facerecon_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """FaceReconCoeffNet's params -> the port's state dict: the trunk by
+    torchvision's names, the Dense `fc` (2048, 257) split back into the
+    reference's seven 1x1 heads `final_layers.0-6` (id 80, exp 64, tex 80,
+    angle 3, gamma 27, txy 2, tz 1)."""
+    from reface_tpu_torch.eval.backbones import D3DFR_HEADS
+
+    if "params" in tree:
+        tree = tree["params"]
+    sd = _convert({k: v for k, v in tree.items() if k != "fc"}, _resnet50_rule)
+    kernel, bias = np.asarray(tree["fc"]["kernel"]), np.asarray(tree["fc"]["bias"])
+    lo = 0
+    for i, n in enumerate(D3DFR_HEADS):
+        sd[f"final_layers.{i}.weight"] = _tensor(kernel[:, lo:lo + n].T[:, :, None, None])
+        sd[f"final_layers.{i}.bias"] = _tensor(bias[lo:lo + n])
+        lo += n
+    return sd
 
 
 def conditioner_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:

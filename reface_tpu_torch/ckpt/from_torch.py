@@ -17,6 +17,14 @@ nothing is renamed here: keys are routed to their tower and checked.
   and the Lightning entries around the state dict.
 - `bisenet_state_dict`: face-parsing's `79999_iter.pth`.
 - `safety_state_dict`: diffusers' StableDiffusionSafetyChecker.
+- The eval towers (eval/backbones.py, eval/fid.py): `clip_vision_state_dict`
+  (an HF CLIPModel file, e.g. ViT-B/32; the text tower is ignored),
+  `hopenet_state_dict` (its unused `fc_finetune` head dropped by name and
+  listed; any other key the net lacks raises), `facerecon_state_dict`
+  (Deep3DFaceRecon's `epoch_20.pth`: `net_recon.backbone.*` and the seven
+  `net_recon.final_layers.*`, nested under "net_recon" or flat, or the
+  flat `conv1.*` / `final_layers.*` the JAX evaluate driver reads) and
+  `arcface_state_dict` (`model_ir_se50.pth`).
 - `expand_conv_in`: zero-pad a 4-channel SD conv_in to REFace's 9.
 - `load_swap_params` / `save_swap_params`: the port's own three state dicts
   in one torch file (`--save-params`, read back by `--ckpt`).
@@ -37,6 +45,8 @@ import torch
 
 __all__ = ["CheckpointError", "load_torch_state_dict", "expand_conv_in",
            "reface_state_dicts", "bisenet_state_dict", "safety_state_dict",
+           "clip_vision_state_dict", "hopenet_state_dict", "facerecon_state_dict",
+           "arcface_state_dict",
            "load_swap_params", "save_swap_params", "is_swap_params", "UNET_PREFIX",
            "VAE_PREFIX"]
 
@@ -82,8 +92,12 @@ def expand_conv_in(sd: dict, in_channels: int = 9,
 
 def _select(module: torch.nn.Module, source: Mapping, what: str) -> dict:
     """The entries of `source` that `module`'s state dict names, shape-checked,
-    floating ones as float32."""
+    floating ones as float32. A BatchNorm's `num_batches_tracked`, which
+    files saved before torch 0.4.1 lack, becomes 0 as torch's BatchNorm
+    loads it; any other missing key raises CheckpointError."""
     want = module.state_dict()
+    source = {**{k: torch.zeros((), dtype=torch.long) for k in want
+                 if k.endswith(".num_batches_tracked") and k not in source}, **source}
     missing = [k for k in want if k not in source]
     if missing:
         lines = "\n".join(f"  {k}" for k in missing[:20])
@@ -146,6 +160,59 @@ def safety_state_dict(sd: Mapping, config=None) -> dict:
     if "visual_projection.weight" in sd:
         src["tower.visual_projection.weight"] = sd["visual_projection.weight"]
     return _select(SafetyChecker(config or SafetyCheckerConfig(), device="meta"), src, "safety")
+
+
+def clip_vision_state_dict(sd: Mapping, config=None) -> dict:
+    """An HF CLIPModel state dict (`vision_model.*`, `visual_projection.*`,
+    with or without a leading `model.`) -> a standalone CLIPVisionTower's
+    state dict (the JAX convert_clip_vision); default config: eval's
+    CLIP_B32."""
+    from reface_tpu_torch.eval.fid import CLIP_B32
+    from reface_tpu_torch.nn.clip import CLIPVisionTower
+
+    if any(k.startswith("model.") for k in sd):
+        sd = _strip(sd, "model.")
+    return _select(CLIPVisionTower(config or CLIP_B32, device="meta"), sd, "clip vision")
+
+
+def hopenet_state_dict(sd: Mapping) -> tuple[dict, list]:
+    """Hopenet's file (torchvision trunk, fc_yaw/fc_pitch/fc_roll and the
+    unused fc_finetune) -> (the port's Hopenet state dict, the keys dropped).
+    Only `fc_finetune.*` is dropped; another key the net does not have
+    raises CheckpointError."""
+    from reface_tpu_torch.eval.backbones import Hopenet
+
+    net = Hopenet(device="meta")
+    want = net.state_dict()
+    dropped = sorted(k for k in sd if k.startswith("fc_finetune."))
+    extra = sorted(k for k in sd if k not in want and k not in dropped)
+    if extra:
+        raise CheckpointError(f"hopenet: {len(extra)} keys the net does not have "
+                              f"(first 20): {extra[:20]}")
+    return _select(net, sd, "hopenet"), dropped
+
+
+def facerecon_state_dict(sd: Mapping) -> dict:
+    """Deep3DFaceRecon's coefficient net -> the port's FaceReconCoeffNet
+    state dict: `net_recon.` (a nested "net_recon" entry, as epoch_20.pth
+    holds it, or a key prefix) and the trunk's `backbone.` are stripped;
+    the seven 1x1 heads stay `final_layers.0-6`."""
+    from reface_tpu_torch.eval.backbones import FaceReconCoeffNet
+
+    if isinstance(sd.get("net_recon"), Mapping):
+        sd = sd["net_recon"]
+    elif any(k.startswith("net_recon.") for k in sd):
+        sd = _strip(sd, "net_recon.")
+    sd = {k[len("backbone."):] if k.startswith("backbone.") else k: v for k, v in sd.items()}
+    return _select(FaceReconCoeffNet(device="meta"), sd, "facerecon")
+
+
+def arcface_state_dict(sd: Mapping, config=None) -> dict:
+    """The reference's `model_ir_se50.pth` -> the port's IRSE50 state dict
+    (the JAX convert_arcface)."""
+    from reface_tpu_torch.nn.arcface import ArcFaceConfig, IRSE50
+
+    return _select(IRSE50(config or ArcFaceConfig(), device="meta"), sd, "arcface")
 
 
 def save_swap_params(path, params: Mapping) -> None:

@@ -22,7 +22,13 @@ the same pixels:
   cv2's default compression) and baseline JPEG at cv2's defaults (quality
   95, 4:2:0, the standard tables), chosen by the extension.
 - `resize_linear` is `cv2.resize(..., interpolation=INTER_LINEAR)` on
-  uint8 (cv2's 11-bit fixed point, within a level) and float32.
+  uint8 (cv2's 11-bit fixed point, within a level; bit-exact at an exact 2x
+  shrink, where cv2 4 switches to INTER_AREA's (a+b+c+d+2)>>2) and float32;
+  `resize_nearest` is INTER_NEAREST.
+- The PIL reads of the evaluation protocol (reface_tpu/eval/protocol.py):
+  `open_rgb` is `Image.open(p).convert("RGB")` (no EXIF orientation, a
+  16-bit gray PNG clipped to 255), `to_gray_pil` is `convert("L")` and
+  `resize_bicubic_pil` is `Image.resize(..., Image.BICUBIC)`.
 
 The C++ is built by g++ at first use through native_ops.image_library();
 nothing is built at import time.
@@ -30,6 +36,7 @@ nothing is built at import time.
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -37,7 +44,8 @@ import zlib
 import numpy as np
 
 __all__ = ["imdecode", "imread", "imencode", "imwrite", "resize_linear",
-           "rgb_to_bgr", "bgr_to_rgb"]
+           "resize_nearest", "rgb_to_bgr", "bgr_to_rgb", "open_rgb", "to_gray_pil",
+           "resize_bicubic_pil"]
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _JPEG_ERRORS = {
@@ -118,7 +126,7 @@ def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
     return vals[:, :w * ch].reshape(h, w, ch)
 
 
-def _png_decode(data: bytes, gray: bool) -> np.ndarray:
+def _png_decode(data: bytes, gray: bool, pil: bool = False) -> np.ndarray:
     ihdr, palette, idat = None, None, []
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
@@ -154,7 +162,8 @@ def _png_decode(data: bytes, gray: bool) -> np.ndarray:
             img[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
     # libpng's transforms as cv2 sets them: palette -> RGB, gray below 8 bits
     # scaled to 8, alpha stripped, rgb_to_gray for a gray read of colour,
-    # then 16 -> 8 bits by dropping the low byte
+    # then 16 -> 8 bits by dropping the low byte (`pil`: PIL opens 16-bit
+    # gray as "I;16", whose convert clips to 255)
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
@@ -173,7 +182,9 @@ def _png_decode(data: bytes, gray: bool) -> np.ndarray:
         mix = (mix + 16384) >> 15 if img.dtype == np.uint16 else mix >> 15
         same = (r == g) & (g == b)
         img = np.where(same, r, mix).astype(img.dtype)[..., None]
-    if img.dtype == np.uint16:
+    if img.dtype == np.uint16 and pil and ctype == 0:
+        img = np.minimum(img, 255).astype(np.uint8)
+    elif img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     if gray:
         return np.ascontiguousarray(img[..., 0])
@@ -213,7 +224,7 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
             7: lambda a: t(a)[::-1, ::-1], 8: lambda a: t(a)[::-1]}[orientation](img)
 
 
-def _jpeg_decode(data: bytes, gray: bool) -> np.ndarray:
+def _jpeg_decode(data: bytes, gray: bool, orient: bool = True) -> np.ndarray:
     import ctypes
 
     lib = _lib()
@@ -227,7 +238,7 @@ def _jpeg_decode(data: bytes, gray: bool) -> np.ndarray:
     rc = lib.ic_jpeg_decode(_ptr(buf), buf.size, h, w, int(gray), _ptr(out))
     if rc < 0:
         raise ValueError(_JPEG_ERRORS.get(rc, f"JPEG error {rc}"))
-    return np.ascontiguousarray(_orient(out, orientation))
+    return np.ascontiguousarray(_orient(out, orientation) if orient else out)
 
 
 def _jpeg_encode(img: np.ndarray, quality: int = 95) -> bytes:
@@ -264,6 +275,35 @@ def imread(path, gray: bool = False) -> np.ndarray:
         return imdecode(f.read(), gray)
 
 
+def open_rgb(path) -> np.ndarray:
+    """`PIL.Image.open(path).convert("RGB")` as (H, W, 3) uint8: alpha
+    dropped, gray replicated, a palette expanded, like `imread`, but with no
+    EXIF orientation (PIL applies none) and a 16-bit gray PNG clipped to 255
+    (PIL's "I;16" convert) where cv2 drops the low byte."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIG):
+        return _png_decode(data, False, pil=True)
+    if data[:2] == b"\xff\xd8":
+        return _jpeg_decode(data, False, orient=False)
+    raise ValueError(f"{path}: not a PNG or JPEG file")
+
+
+def to_gray_pil(img: np.ndarray) -> np.ndarray:
+    """PIL's convert("L") of an (H, W, 3) RGB uint8 image -> (H, W) uint8:
+    (R * 19595 + G * 38470 + B * 7471 + 0x8000) >> 16. The weights sum to
+    65536, so an L image read through `open_rgb` (replicated) comes back as
+    it was, as convert("L") leaves it; a palette image's entries go through
+    the same sum (PIL's p2l), and RGBA's alpha is not read (rgba2l). An
+    (H, W) image is already L and comes back as a copy."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        return img.copy()
+    wide = img.astype(np.uint32)
+    r, g, b = wide[..., 0], wide[..., 1], wide[..., 2]
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
 def imencode(ext: str, img: np.ndarray, quality: int = 95) -> bytes:
     """(H, W, 3) RGB or (H, W) gray uint8 -> the bytes of a ".png" or a
     ".jpg"/".jpeg" file (JPEG at `quality`, 4:2:0)."""
@@ -286,6 +326,21 @@ def imwrite(path, img: np.ndarray, quality: int = 95) -> None:
 
 
 # ------------------------------------------------------------------ resize
+
+def _nearest_index(src: int, dst: int) -> np.ndarray:
+    """cv2's INTER_NEAREST source index: min(floor(x / (dst / src)), src - 1)
+    in double, with no half-pixel shift."""
+    ifx = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * ifx).astype(np.int64), src - 1)
+
+
+def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """`cv2.resize(img, (width, height), interpolation=INTER_NEAREST)` for an
+    (H, W[, C]) image of any dtype."""
+    img = np.asarray(img)
+    sh, sw = img.shape[:2]
+    return np.ascontiguousarray(img[_nearest_index(sh, height)][:, _nearest_index(sw, width)])
+
 
 def _linear_taps(src: int, dst: int):
     """cv2's INTER_LINEAR source index and weight of each output position:
@@ -327,3 +382,69 @@ def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     top = ((rows[y0] >> 4) * cy[0].reshape(shp)) >> 16
     bottom = ((rows[y1] >> 4) * cy[1].reshape(shp)) >> 16
     return np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+_PIL_BITS = 22  # PIL's PRECISION_BITS: 32 - 8 - 2
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic_filter (a = -0.5), in its operation order."""
+    x = np.abs(x)
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _pil_taps(src: int, dst: int):
+    """PIL's precompute_coeffs + normalize_coeffs_8bpc for BICUBIC: the
+    source index and the 22-bit fixed-point weight of each tap of each
+    output position. A shrink widens the support by the scale (PIL's
+    antialias); weights are normalised in double, summed in tap order."""
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(dst) + 0.5) * scale
+    # C's (int) truncates toward zero
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), src) - xmin
+    taps = np.arange(ksize)
+    w = _pil_bicubic(((taps[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w[taps[None] >= xmax[:, None]] = 0.0
+    ww = np.zeros(dst)
+    for t in range(ksize):
+        ww = ww + w[:, t]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    k = np.trunc(w * (1 << _PIL_BITS) + np.where(w < 0, -0.5, 0.5)).astype(np.int64)
+    return np.minimum(xmin[:, None] + taps[None], src - 1), k
+
+
+def _pil_pass(img: np.ndarray, axis: int, dst: int) -> np.ndarray:
+    """One of PIL's 8bpc resample passes along `axis` (0 rows, 1 columns):
+    the taps summed in int32 (PIL's INT32) from a half, shifted down and
+    clipped to uint8 (clip8)."""
+    idx, k = _pil_taps(img.shape[axis], dst)
+    src = img.astype(np.int32)
+    shape = [1] * img.ndim
+    shape[axis] = dst
+    acc = np.full(img.shape[:axis] + (dst,) + img.shape[axis + 1:], 1 << (_PIL_BITS - 1),
+                  np.int32)
+    for t in range(idx.shape[1]):
+        acc += np.take(src, idx[:, t], axis=axis) * k[:, t].astype(np.int32).reshape(shape)
+    return np.clip(acc >> _PIL_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bicubic_pil(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """`Image.fromarray(img).resize((width, height), Image.BICUBIC)` for an
+    (H, W[, C]) uint8 image: PIL's convolution resample, the horizontal pass
+    and then the vertical, each clipped to uint8; an image already at the
+    size comes back unchanged (a copy)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_bicubic_pil takes uint8, got {img.dtype}")
+    out = img.copy()
+    if img.shape[1] != width:
+        out = _pil_pass(out, 1, width)
+    if img.shape[0] != height:
+        out = _pil_pass(out, 0, height)
+    return out

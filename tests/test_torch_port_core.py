@@ -129,7 +129,14 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.native_ops, reface_tpu_torch.cli.common, "
         "reface_tpu_torch.cli.swap, reface_tpu_torch.cli.demo_server, "
         "reface_tpu_torch.ckpt.from_torch, reface_tpu_torch.core.config, "
-        "reface_tpu_torch.io.images, reface_tpu_torch.nn.safety\n"
+        "reface_tpu_torch.io.images, reface_tpu_torch.nn.safety, "
+        "reface_tpu_torch.eval, reface_tpu_torch.eval.backbones, "
+        "reface_tpu_torch.eval.fid, reface_tpu_torch.eval.id_retrieval, "
+        "reface_tpu_torch.eval.pose, reface_tpu_torch.eval.expression, "
+        "reface_tpu_torch.eval.protocol, reface_tpu_torch.data, "
+        "reface_tpu_torch.data.augment, reface_tpu_torch.data.test_bench, "
+        "reface_tpu_torch.data.loader, reface_tpu_torch.cli.evaluate, "
+        "reface_tpu_torch.cli.inference_test_bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
