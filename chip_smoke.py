@@ -143,7 +143,24 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      launches per step and shape against the plan worked out from the config
      (the VAE decoder under autograd launches FlashAttention at d=512 and
      never K2), the split_grad=2 step against the monolith, and a tiny fp32
-     full-loss step on the card against the CPU port.
+     full-loss step on the card against the CPU port;
+  13. (run after phase 8) the training entry point: cli.train at SwapConfig()
+     widths and 512 px on a CelebA-style tree of 1024 px items (masks merged
+     by cli.prepare_data merge-celeba-masks), run A: 4 full-loss steps at
+     batch 4 with seeded LPIPS and LandmarkNet files, EMA, validation every 2
+     steps with top-1 retention, a sample swap and checkpoints; the losses
+     finite, every trainable tensor moved and no frozen one, each step's,
+     validation batch's and sample swap's launches by shape against their
+     plans, the files; its step time, the share of each step spent waiting
+     on the loader, peak memory and each checkpoint's bytes and save
+     seconds; run B resumes from step 2 (the loaded state bit-equal to the
+     files) to step 4; one split_grad=2 step with the bf16 accumulator
+     against the fp32 one (ACC_TOL); an eps-MSE run on an FFHQ-style tree;
+     cli.swap --ckpt on run B's params file within one level of
+     FaceSwapper.swap on the same weights; cli.prepare_data
+     expand-sd-checkpoint, estimate-ffhq-masks and crop-and-mask; K2 at the
+     trainer's batch-4 shape. At most two full checkpoints (~12 GiB each)
+     are on disk at once, and every file is deleted at the end.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
 ...}. Any failure exits non-zero before that line; without a CUDA device it
@@ -167,13 +184,24 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from reface_tpu_torch.ckpt.from_torch import save_swap_params
+from reface_tpu_torch.ckpt import io as ckpt_io
+from reface_tpu_torch.ckpt.from_torch import UNET_PREFIX, VAE_PREFIX, save_swap_params
 from reface_tpu_torch.cli import common as cli_common
 from reface_tpu_torch.cli import demo_server
 from reface_tpu_torch.cli import evaluate as cli_evaluate
 from reface_tpu_torch.cli import inference_test_bench as cli_test_bench
+from reface_tpu_torch.cli import prepare_data as cli_prepare
 from reface_tpu_torch.cli import swap as cli_swap
-from reface_tpu_torch.data import TestBenchConfig, TestBenchDataset, collate
+from reface_tpu_torch.cli import train as cli_train
+from reface_tpu_torch.data import (
+    CelebAHQConfig,
+    CelebAHQDataset,
+    TestBenchConfig,
+    TestBenchDataset,
+    collate,
+    make_synthetic_celeba,
+    make_synthetic_ffhq,
+)
 from reface_tpu_torch.eval import CLIP_B32, FaceReconCoeffNet, Hopenet
 from reface_tpu_torch.eval import expression_coeffs, pose_angles, protocol as eval_protocol
 from reface_tpu_torch.eval.fid import clip_features
@@ -182,7 +210,8 @@ from reface_tpu_torch.nn.arcface import IRSE50, ArcFaceConfig
 from reface_tpu_torch.nn.clip import CLIPVisionTower
 from reface_tpu_torch.nn.bisenet import BiSeNet, BiSeNetConfig, parse_faces
 from reface_tpu_torch.nn.conditioner import REFaceConditioner
-from reface_tpu_torch.nn.landmarks import LandmarkNet
+from reface_tpu_torch.nn.landmarks import LandmarkNet, LandmarkNetConfig
+from reface_tpu_torch.nn.lpips import LPIPS
 from reface_tpu_torch.nn.safety import SafetyChecker, SafetyCheckerConfig
 from reface_tpu_torch.nn.unet import UNetModel
 from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL
@@ -3111,6 +3140,503 @@ def full_loss_path():
     return launches, per_step, run_shapes, times, peak, batch
 
 
+# ------------------------------------------------------------------ phase 13
+
+CLI_BATCH = 4
+CLI_STEPS = 4
+CELEBA_ITEMS, CELEBA_TRAIN, CELEBA_SIZE = 16, 12, 1024
+FFHQ_ITEMS, FFHQ_SIZE = 4, 512
+SAMPLE_BATCH, SAMPLE_STEPS = 2, 8  # cli.train's sample swaps
+# Phase 13: one split_grad=2 step with the bf16 accumulator against the same
+# step with the fp32 one, on the same state, batch and draws. The recon
+# gradient is rounded to bf16 (2^-9 relative) before the sum and the chain's
+# pullback runs at the trainable weights rounded to bf16; AdamW's update
+# carries that through about linearly. Two fp32 split steps alone differ by
+# ~3e-4 (phase 8's SPLIT_TOL note). Limit, set before the first run: 1e-2
+# relative L2 of the update over all trainable tensors.
+ACC_TOL = 1e-2
+
+
+class Tee:
+    """stdout for a driver run: printed as it comes, and kept."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+class LaunchLog:
+    """The launches of each call of the wrapped trainer functions, by kernel
+    and shape: make_train_step's step and loss (validation) functions and
+    FaceSwapper.swap (the sample swaps), patched for one driver run; and the
+    weights the first step starts from. The patched init_state re-randomises
+    the reference's zero-initialised layers."""
+
+    def __init__(self):
+        self.calls = collections.defaultdict(list)
+        self.snapshot = None
+
+    @contextlib.contextmanager
+    def scope(self, kind):
+        for k in KERNELS:
+            k.shapes = collections.Counter()
+        try:
+            yield
+        finally:
+            self.calls[kind].append({k.__name__: dict(k.shapes) for k in KERNELS})
+            for k in KERNELS:
+                k.shapes = None
+
+    @contextlib.contextmanager
+    def patched(self):
+        import reface_tpu_torch.pipelines.train as PT
+
+        make, swap = PT.make_train_step, FaceSwapper.swap
+
+        def make_logged(*a, **kw):
+            step_fn, loss_fn, init_state = make(*a, **kw)
+
+            def step(state, batch, **kw2):
+                if self.snapshot is None:  # the weights the first step starts from
+                    self.snapshot = {k: p.detach().to("cpu", copy=True)
+                                     for k, p in named_params(state.modules).items()}
+                with self.scope("step"):
+                    return step_fn(state, batch, **kw2)
+
+            def loss(modules, batch, **kw2):
+                with self.scope("val"):
+                    return loss_fn(modules, batch, **kw2)
+
+            def init(*a2, **kw2):
+                # the reference's zero-initialised layers re-randomised, as in
+                # phases 7 and 8: a zero bias behind a one-token cross-attention
+                # gets no gradient and no weight decay, and would not move
+                state = init_state(*a2, **kw2)
+                for i, m in enumerate(state.modules.towers().values()):
+                    init_params(m, seed=i, dezero=True)
+                return state
+
+            return step, loss, init
+
+        def swap_logged(sw, *a, **kw):
+            with self.scope("sample"):
+                return swap(sw, *a, **kw)
+
+        PT.make_train_step, FaceSwapper.swap = make_logged, swap_logged
+        try:
+            yield self
+        finally:
+            PT.make_train_step, FaceSwapper.swap = make, swap
+
+
+def val_loss_plan(recon, batch: int) -> dict:
+    """Launches of one validation batch of the full loss under no_grad: each
+    UNet pass's 10 flash self-attentions once (no remat without a graph),
+    the three collected latents decoded once each through FlashAttention at
+    d=512 (the training VAE's decoder), the two encodes through K2."""
+    passes = 1 + recon.ddim_steps
+    wide = (batch, 4096, 4096, 512)
+    return {"self_attention_smalld": {}, "wide_attention": {wide: 2}, "group_norm_silu": {},
+            "flash_attention_fwd": {(8 * batch, 4096, 4096, 40): 5 * passes,
+                                    (8 * batch, 1024, 1024, 80): 5 * passes, wide: 3},
+            "flash_bwd_dkv": {}, "flash_bwd_dq": {}}
+
+
+def sample_plan(cfg: SwapConfig) -> dict:
+    """Launches of one sample swap (mode_plan at 8 DDIM steps, batch 2), by
+    wrapper and shape."""
+    p = mode_plan(dataclasses.replace(cfg, ddim_steps=SAMPLE_STEPS), SAMPLE_STEPS,
+                  batch=SAMPLE_BATCH)
+    nonzero = lambda c: {k: v for k, v in c.items() if v}
+    return {"self_attention_smalld": nonzero(p["K1"]), "wide_attention": nonzero(p["K2"]),
+            "group_norm_silu": {}, "flash_attention_fwd": {}, "flash_bwd_dkv": {},
+            "flash_bwd_dq": {}}
+
+
+def eps_step_plan(batch: int) -> dict:
+    """Launches of one eps-MSE step (phase 7's TRAIN_PLAN) by wrapper and shape."""
+    unet = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
+    return {"self_attention_smalld": {}, "wide_attention": {(batch, 4096, 4096, 512): 2},
+            "group_norm_silu": {}, "flash_attention_fwd": {k: 2 * c for k, c in unet.items()},
+            "flash_bwd_dkv": unet, "flash_bwd_dq": unet}
+
+
+def check_calls(log: LaunchLog, kind: str, plan: dict, n: int):
+    calls = log.calls[kind]
+    if len(calls) != n:
+        fail(f"cli.train: {len(calls)} {kind} calls, expected {n}")
+    for i, got in enumerate(calls):
+        if got != plan:
+            fail(f"cli.train {kind} call {i}: launches by shape {got}, planned {plan}")
+
+
+def read_jsonl(path) -> list:
+    return [json.loads(line) for line in Path(path).read_text().splitlines() if line]
+
+
+def run_driver(main_fn, argv) -> tuple:
+    """(return value, stdout text) of a driver's main(argv)."""
+    import sys
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = main_fn(argv)
+    return out, "".join(tee.text)
+
+
+def check_state_equals_files(path: str, state):
+    """The state just loaded from a ckpt/io.py checkpoint, bit-equal to its
+    files: every tower's tensors, AdamW's mu and nu, its counters, the step
+    and the EMA shadow."""
+    params = ckpt_io.load_params(path)
+    tree = torch.load(Path(path) / ckpt_io.STATE_FILE, map_location="cpu",
+                      weights_only=True, mmap=True)
+    bad, n = [], 0
+    for name, m in state.modules.towers().items():
+        for k, t in m.state_dict().items():
+            n += 1
+            if not torch.equal(t, params[name][k].to(t.device)):
+                bad.append(f"{name}.{k}")
+    opt = state.opt
+    for key in ("mu", "nu"):
+        for name, t in zip(opt.names, getattr(opt, key)):
+            n += 1
+            if not torch.equal(t, tree["opt"][key][name].to(t.device)):
+                bad.append(f"{key}.{name}")
+    for k, t in state.ema.shadow.items():
+        n += 1
+        if not torch.equal(t, tree["ema"]["shadow"][k].to(t.device)):
+            bad.append(f"ema.{k}")
+    scalars = (state.step, opt.count, opt.mini_step, state.ema.updates)
+    want = (tree["step"], tree["opt"]["count"], tree["opt"]["mini_step"],
+            tree["ema"]["updates"])
+    if bad or scalars != want:
+        fail(f"the resumed state differs from its checkpoint: {bad[:10]}, counters "
+             f"{scalars} vs {want}")
+    return n
+
+
+def train_cli_data(d: Path) -> dict:
+    """The phase's files: a CelebA-style tree (1024 px JPEGs, the per-class
+    mask PNGs merged by cli.prepare_data merge-celeba-masks), an FFHQ-style
+    tree, a seeded LPIPS module dump, LandmarkNet and BiSeNet state dicts."""
+    celeba, ffhq = d / "celeba", d / "ffhq"
+    make_synthetic_celeba(str(celeba), count=CELEBA_ITEMS, size=CELEBA_SIZE, seed=13,
+                          class_masks=True)
+    cli_prepare.main(["merge-celeba-masks", "--dataset-dir", str(celeba),
+                      "--count", str(CELEBA_ITEMS)])
+    merged = sorted((celeba / "CelebA-HQ-mask" / "Overall_mask").glob("*.png"))
+    if len(merged) != CELEBA_ITEMS:
+        fail(f"merge-celeba-masks wrote {len(merged)} masks, expected {CELEBA_ITEMS}")
+    make_synthetic_ffhq(str(ffhq), count=FFHQ_ITEMS, size=FFHQ_SIZE, seed=14)
+    files = {"celeba": celeba, "ffhq": ffhq}
+    for name, module, seed in (("lpips", LPIPS(), 5),
+                               ("landmarks", LandmarkNet(LandmarkNetConfig()), 6),
+                               ("bisenet", BiSeNet(BiSeNetConfig()), 7)):
+        files[name] = d / f"{name}.pth"
+        torch.save(init_params(module, seed=seed).state_dict(), files[name])
+    return files
+
+
+def train_cli_path(smi: str, gen) -> dict:
+    """Phase 13: cli.train at full width with the full losses, its save and
+    resume, a bf16-accumulator step, the eps-MSE run, cli.swap on the trained
+    checkpoint and cli.prepare_data. Returns its stats."""
+    cfg = SwapConfig()
+    recon = ReconLossConfig()
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free = shutil.disk_usage(d).free
+    print(f"  free disk space under {d.parent}: {free / 2**30:.1f} GiB", flush=True)
+    stats = {"free_disk_gib": free / 2**30}
+    try:
+        t0 = time.perf_counter()
+        files = train_cli_data(d)
+        stats["data_s"] = time.perf_counter() - t0
+        print(f"  wrote a CelebA-style tree of {CELEBA_ITEMS} {CELEBA_SIZE} px items (masks "
+              f"merged by cli.prepare_data merge-celeba-masks), an FFHQ-style tree of "
+              f"{FFHQ_ITEMS}, seeded LPIPS, LandmarkNet and BiSeNet files in "
+              f"{stats['data_s']:.1f} s", flush=True)
+        common = ["--dataset-dir", str(files["celeba"]), "--dataset", "celeba",
+                  "--batch-size", str(CLI_BATCH), "--full-losses", "--train-count",
+                  str(CELEBA_TRAIN), "--lpips-ckpt", str(files["lpips"]),
+                  "--landmark-ckpt", str(files["landmarks"]), "--ema-decay", "0.9999",
+                  "--log-every", "1", "--warmup-steps", "1"]
+
+        # run A: 4 steps, validation, samples, checkpoints
+        a = d / "runA"
+        log = LaunchLog()
+        reset_counts()  # the trainer's run starts here
+        with log.patched():
+            state, out = run_driver(cli_train.main, common + [
+                "--logdir", str(a), "--steps", str(CLI_STEPS), "--image-log-every", "2",
+                "--sample-log-every", "4", "--val-every", "2", "--val-count", "4",
+                "--keep-top-k", "1", "--ckpt-every", "2"])
+        launches_a = counts()
+        check_calls(log, "step", full_loss_plan(recon, CLI_BATCH), CLI_STEPS)
+        check_calls(log, "val", val_loss_plan(recon, CLI_BATCH), 2)
+        check_calls(log, "sample", sample_plan(cfg), 1)
+        metrics = read_jsonl(a / "metrics.jsonl")
+        vals = [v for m in metrics for k, v in m.items() if "loss" in k]
+        if len(metrics) != CLI_STEPS + 2 or not all(map(math.isfinite, vals)):
+            fail(f"run A's metrics: {metrics}")
+        named = named_params(state.modules)
+        labels = trainable_labels(named)
+        moved = {k for k, p in named.items() if not torch.equal(p.cpu(), log.snapshot[k])}
+        stuck = ([k for k in moved if labels[k] == "freeze"]
+                 + [k for k in named if labels[k] == "train" and k not in moved])
+        ckpts = sorted(p.name for p in (a / "checkpoints").iterdir())
+        imgs = sorted(p.name for p in (a / "images").iterdir())
+        want_imgs = ["inputs_00000002.png", "inputs_00000004.png", "samples_00000004.png"]
+        n_best = sum(c.startswith("best_") for c in ckpts)
+        if stuck or state.step != CLI_STEPS:
+            fail(f"run A: step {state.step}; trainable tensors that did not move or frozen "
+                 f"ones that did: {stuck[:8]}")
+        if ({"step_00000002", "step_00000004", "last"} - set(ckpts) or n_best != 1
+                or imgs != want_imgs):
+            fail(f"run A wrote checkpoints {ckpts} and images {imgs}")
+        del state, named, log.snapshot
+        torch.cuda.empty_cache()
+        timing = read_jsonl(a / "timing.jsonl")
+        steps = [r for r in timing if "step_s" in r]
+        steady = steps[1:]
+        step_s = sum(r["step_s"] for r in steady) / len(steady)
+        wait = sum(r["loader_wait_s"] for r in steady) / sum(r["step_s"] for r in steady)
+        peak = max(r.get("peak_bytes_in_use", 0) for r in steps)
+        saves = [{k: r[k] for k in ("ckpt", "bytes", "save_s")} for r in timing if "ckpt" in r]
+        stats["run_a"] = {"step_s": [r["step_s"] for r in steps], "steady_step_s": step_s,
+                          "samples_per_s": CLI_BATCH / step_s, "loader_wait_share": wait,
+                          "loader_wait_s": [r["loader_wait_s"] for r in steps],
+                          "peak_gib": peak / 2**30, "saves": saves,
+                          "launches": dict(zip(("K1", "K2", "K3", "K2r", "K4", "K5"),
+                                               launches_a))}
+        print(f"  run A ({smi}): cli.train --full-losses --batch-size {CLI_BATCH} at "
+              f"{cfg.image_size} px, {CLI_STEPS} steps: losses finite, all "
+              f"{sum(v == 'train' for v in labels.values())} trainable tensors moved and none "
+              f"of the {sum(v == 'freeze' for v in labels.values())} frozen ones; step time "
+              f"first {steps[0]['step_s']:.3f} s, steady {step_s:.3f} s, "
+              f"{CLI_BATCH / step_s:.3f} samples/s; loader wait {100 * wait:.2f}% of the "
+              f"steady steps ({[round(r['loader_wait_s'], 4) for r in steps]} s); peak "
+              f"{peak / 2**30:.2f} GiB; launches (K1, K2, K3, K2r, K4, K5) {launches_a}, each "
+              f"step, validation batch and sample swap as planned by shape; files "
+              f"{ckpts} + {imgs}", flush=True)
+        for s in saves:
+            print(f"    checkpoint {s['ckpt']}: {s['bytes'] / 2**30:.3f} GiB in "
+                  f"{s['save_s']:.2f} s", flush=True)
+
+        # run B: resume from step 2, bit-equal, to step 4 (two full
+        # checkpoints at most on disk: the one resumed from and B's last)
+        src = a / "checkpoints" / "step_00000002"
+        for c in (a / "checkpoints").iterdir():
+            if c != src:
+                shutil.rmtree(c)
+        b = d / "runB"
+        load, checked = ckpt_io.load_train_state, {}
+
+        def load_checked(path, st):
+            load(path, st)
+            torch.cuda.synchronize()
+            checked["n"] = check_state_equals_files(path, st)
+            return st
+
+        ckpt_io.load_train_state = load_checked
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            state, out = run_driver(cli_train.main, common + [
+                "--logdir", str(b), "--steps", str(CLI_STEPS), "--resume", str(src)])
+        finally:
+            ckpt_io.load_train_state = load
+        if "resumed FULL train state at step 2" not in out or state.step != CLI_STEPS \
+                or "n" not in checked:
+            fail(f"run B did not resume the full state at step 2 and end at step "
+                 f"{CLI_STEPS} (step {state.step})")
+        resume = [r for r in read_jsonl(b / "timing.jsonl") if "resume_load_s" in r][0]
+        stats["run_b"] = {"load_s": resume["resume_load_s"],
+                          "peak_gib_at_resume": resume.get("peak_bytes_in_use", 0) / 2**30,
+                          "tensors_bit_equal": checked["n"]}
+        print(f"  run B: resumed FULL train state at step 2 in {resume['resume_load_s']:.2f} s "
+              f"(peak {stats['run_b']['peak_gib_at_resume']:.2f} GiB at resume), all "
+              f"{checked['n']} tensors and the counters bit-equal to the files; ended at step "
+              f"{state.step}", flush=True)
+
+        # cli.swap --precropped on run B's last parameters file, against
+        # FaceSwapper.swap on the same weights in memory (bf16, as the driver)
+        params_file = b / "checkpoints" / "last" / ckpt_io.PARAMS_FILE
+        direct = FaceSwapper(cfg, {n: sd for n, sd in state.params().items()
+                                   if n in ("unet", "vae", "conditioner")}, device="cuda")
+        cli_common._round_weights(direct.towers().values(), torch.bfloat16)
+        src_img = photo_like(80, cfg.image_size, cfg.image_size)
+        images.imwrite(d / "source.png", src_img)
+        images.imwrite(d / "target.png", photo_like(81, cfg.image_size, cfg.image_size))
+        src01 = cli_swap._read01(str(d / "source.png"))
+        ref = clip_normalize(torch.from_numpy(src01[None]).cuda().permute(0, 3, 1, 2))
+        tgt = cli_swap._read01(str(d / "target.png"), cfg.image_size)[None] * 2 - 1
+        mask = cli_common.default_inpaint_mask(cfg.image_size)[None]
+        want = direct.swap(target_image=tgt, inpaint_image=tgt * mask, inpaint_mask=mask,
+                           ref_clip224=ref.permute(0, 2, 3, 1),
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+        want = ((want[0].cpu() + 1) / 2).clamp(0, 1)
+        del direct, ref
+        torch.cuda.empty_cache()
+        # one split_grad=2 step from step 2's state, bf16 accumulator vs fp32
+        ds = CelebAHQDataset(CelebAHQConfig(dataset_dir=str(files["celeba"]),
+                                            image_size=cfg.image_size,
+                                            train_count=CELEBA_TRAIN, data_seed=0))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 collate([ds[i] for i in range(CLI_BATCH)]).items()}
+        batch = {"target_image": batch["GT"], "inpaint_image": batch["inpaint_image"],
+                 "inpaint_mask": batch["inpaint_mask"], "ref_clip224": batch["ref_imgs"]}
+        g = torch.Generator(device="cuda").manual_seed(21)
+        draws = make_draws(CLI_BATCH, cfg.latent_size, TrainConfig(), "cuda", g)
+        trainable = [p for p in named_params(state.modules).values() if p.requires_grad]
+        deltas = {}
+        for acc in ("float32", "bfloat16"):
+            tcfg = TrainConfig(learning_rate=1e-5 * CLI_BATCH, warmup_steps=1, ema_decay=0.9999,
+                               split_grad=2, split_acc_dtype=acc)
+            step_fn = make_train_step(cfg, tcfg, recon=recon, device="cuda")[0]
+            load(str(src), state)
+            p0 = [p.detach().clone() for p in trainable]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch, draws)
+            torch.cuda.synchronize()
+            # the step's own peak: above what was resident when it began
+            # (the state, the copy of the weights, the other step's update)
+            peak = torch.cuda.max_memory_allocated() - resident
+            deltas[acc] = ([p.detach() - q for p, q in zip(trainable, p0)],
+                           time.perf_counter() - t1, m["loss"].item(), peak)
+            del p0
+        (d32, s32, l32, m32), (d16, s16, l16, m16) = deltas["float32"], deltas["bfloat16"]
+        num = sum((x - y).double().pow(2).sum() for x, y in zip(d16, d32))
+        rel = float((num / sum(y.double().pow(2).sum() for y in d32)).sqrt())
+        stats["bf16_accumulator"] = {"update_rel_l2": rel, "tol": ACC_TOL, "loss": [l32, l16],
+                                     "step_s": [s32, s16],
+                                     "step_peak_gib": [m32 / 2**30, m16 / 2**30]}
+        print(f"  one split_grad=2 step from step 2's state: the bf16 accumulator's update "
+              f"within {rel:.3e} relative L2 of the fp32 one's over {len(d32)} trainable "
+              f"tensors (limit {ACC_TOL:.0e}); loss {l32:.6f} / {l16:.6f}; {s32:.2f} / "
+              f"{s16:.2f} s; the step's peak above the resident memory {m32 / 2**30:.2f} / "
+              f"{m16 / 2**30:.2f} GiB (fp32 / bf16)", flush=True)
+        if not rel <= ACC_TOL:
+            fail("the bf16 split-grad accumulator's update is off the fp32 one's")
+        del deltas, d32, d16, trainable, state, m
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        done = cli_swap.main(["--precropped", "--ckpt", str(params_file), "--seed", "5",
+                              "--source", str(d / "source.png"), "--target",
+                              str(d / "target.png"), "--outdir", str(d / "swapped")])
+        got = images.imread(done[0][0])
+        diff = (torch.from_numpy(got).float() / 255 - want).abs().max().item()
+        stats["cli_swap_levels_from_direct"] = diff * 255
+        print(f"  cli.swap --precropped --ckpt {params_file.relative_to(d)} "
+              f"({params_file.stat().st_size / 2**30:.3f} GiB): within {diff * 255:.3f} levels "
+              f"of FaceSwapper.swap on the trained weights in memory (limit 1); launches "
+              f"(K1, K2, K3) {counts()[:3]}", flush=True)
+        if diff > LEVEL + 1e-6:
+            fail(f"cli.swap on the trained checkpoint is {diff * 255:.3f} levels off")
+
+        # cli.prepare_data expand-sd-checkpoint on a 4-channel SD-layout file
+        # made from the trained weights
+        trained = ckpt_io.load_params(str(params_file))
+        conv_in = "input_blocks.0.0.weight"
+        sd4 = {**{UNET_PREFIX + k: v for k, v in trained["unet"].items()},
+               **{VAE_PREFIX + k: v for k, v in trained["vae"].items()}}
+        sd4[UNET_PREFIX + conv_in] = trained["unet"][conv_in][:, :4].clone()
+        torch.save({"state_dict": sd4}, d / "sd4.ckpt")
+        sd4_gib = (d / "sd4.ckpt").stat().st_size / 2**30
+        t1 = time.perf_counter()
+        cli_prepare.main(["expand-sd-checkpoint", "--src", str(d / "sd4.ckpt"),
+                          "--dst", str(d / "sd9.ckpt")])
+        expand_s = time.perf_counter() - t1
+        sd9 = torch.load(d / "sd9.ckpt", map_location="cpu", weights_only=True,
+                         mmap=True)["state_dict"]
+        w9 = sd9[UNET_PREFIX + conv_in]
+        same = set(sd9) == set(sd4) and all(
+            torch.equal(sd9[k], v) for k, v in sd4.items() if k != UNET_PREFIX + conv_in)
+        if (w9.shape[1] != 9 or not torch.equal(w9[:, :4], sd4[UNET_PREFIX + conv_in])
+                or w9[:, 4:].any() or not same):
+            fail("expand-sd-checkpoint did not zero-pad conv_in to 9 channels alone")
+        del trained, sd4, sd9, w9
+        print(f"  cli.prepare_data expand-sd-checkpoint: a {sd4_gib:.2f} GiB "
+              f"SD-layout file, conv_in (320, 4, 3, 3) -> (320, 9, 3, 3) zero-padded, every "
+              f"other tensor equal, in {expand_s:.1f} s", flush=True)
+        for f in ("sd4.ckpt", "sd9.ckpt"):
+            (d / f).unlink()
+        shutil.rmtree(a)
+        shutil.rmtree(b)
+
+        # the eps-MSE run on the FFHQ tree
+        log = LaunchLog()
+        reset_counts()
+        with log.patched():
+            state, _ = run_driver(cli_train.main, [
+                "--dataset-dir", str(files["ffhq"]), "--dataset", "ffhq", "--logdir",
+                str(d / "runE"), "--batch-size", "2", "--train-count", str(FFHQ_ITEMS),
+                "--steps", "2", "--log-every", "1", "--no-final-ckpt"])
+        launches_e = counts()
+        check_calls(log, "step", eps_step_plan(2), 2)
+        metrics = read_jsonl(d / "runE" / "metrics.jsonl")
+        if state.step != 2 or not all(math.isfinite(m["loss"]) for m in metrics):
+            fail(f"the eps-MSE run: step {state.step}, metrics {metrics}")
+        e_steps = [r["step_s"] for r in read_jsonl(d / "runE" / "timing.jsonl") if "step_s" in r]
+        stats["eps_run"] = {"step_s": e_steps, "launches": dict(zip(
+            ("K1", "K2", "K3", "K2r", "K4", "K5"), launches_e))}
+        print(f"  the eps-MSE run on the FFHQ tree (batch 2, 2 steps, no final save): losses "
+              f"{[round(m['loss'], 5) for m in metrics]}, step times {e_steps} s, launches "
+              f"{launches_e} as planned by shape", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+        # estimate-ffhq-masks and crop-and-mask with the seeded files
+        ffhq_imgs = sorted((files["ffhq"] / "images512").glob("*.png"))
+        shutil.rmtree(files["ffhq"] / "BiSeNet_mask")
+        t1 = time.perf_counter()
+        cli_prepare.main(["estimate-ffhq-masks", "--dataset-dir", str(files["ffhq"]),
+                          "--bisenet-ckpt", str(files["bisenet"]), "--batch", "4"])
+        est_s = time.perf_counter() - t1
+        net = BiSeNet(BiSeNetConfig(), device="cuda")
+        net.load_state_dict(torch.load(files["bisenet"], weights_only=True))
+        x = torch.stack([torch.from_numpy(images.imread(p)) for p in ffhq_imgs]).cuda()
+        with torch.inference_mode():
+            direct_masks = parse_faces(net.eval(), x.permute(0, 3, 1, 2).float() / 255).cpu()
+        got = torch.stack([torch.from_numpy(images.imread(
+            files["ffhq"] / "BiSeNet_mask" / p.name, gray=True)) for p in ffhq_imgs])
+        if got.shape != (FFHQ_ITEMS, FFHQ_SIZE, FFHQ_SIZE) or not torch.equal(
+                got.long(), direct_masks.long()):
+            fail("estimate-ffhq-masks differs from BiSeNet called directly")
+        t1 = time.perf_counter()
+        cli_prepare.main(["crop-and-mask", "--dataset-dir", str(files["celeba"]), "--out-dir",
+                          str(d / "crops"), "--start", "0", "--count", "2", "--landmark-ckpt",
+                          str(files["landmarks"]), "--bisenet-ckpt", str(files["bisenet"])])
+        crop_s = time.perf_counter() - t1
+        crops = [images.imread(d / "crops" / "crops" / f"{i}.png") for i in range(2)]
+        masks = [images.imread(d / "crops" / "masks" / f"{i}.png", gray=True) for i in range(2)]
+        size = RawPipelineConfig().align_size
+        if [c.shape for c in crops] != [(size, size, 3)] * 2 or \
+                [m.shape for m in masks] != [(size, size)] * 2 or max(m.max() for m in masks) > 11:
+            fail(f"crop-and-mask wrote {[c.shape for c in crops]} / {[m.shape for m in masks]}")
+        stats["prepare_data"] = {"expand_s": expand_s, "estimate_ffhq_masks_s": est_s,
+                                 "crop_and_mask_s": crop_s}
+        print(f"  cli.prepare_data estimate-ffhq-masks: {FFHQ_ITEMS} masks equal to BiSeNet "
+              f"called directly, {est_s:.1f} s; crop-and-mask on 2 {CELEBA_SIZE} px images: "
+              f"{size} px crops and seg12 masks, {crop_s:.1f} s", flush=True)
+        stats["launches_train_cli"] = {"run_a": stats["run_a"]["launches"],
+                                       "eps_run": stats["eps_run"]["launches"]}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return stats
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -3267,6 +3793,20 @@ def main():
     (full_launches, full_per_step, full_run_shapes, full_times, full_peak,
      full_batch) = full_loss_path()
     tiny_train_reference(ReconLossConfig())
+
+    t13 = time.perf_counter()
+    print(f"phase 13: the training entry point, cli.train at SwapConfig() widths and "
+          f"{cfg.image_size} px: {CLI_STEPS} full-loss steps at batch {CLI_BATCH} with "
+          f"validation, samples and checkpoints, a full resume, a bf16-accumulator step, an "
+          f"eps-MSE run, cli.swap on the trained checkpoint, cli.prepare_data", flush=True)
+    cli_stats = train_cli_path(smi, gen)
+    print(f"  K2 at the trainer's batch-{CLI_BATCH} encode shape against its plain version",
+          flush=True)
+    b4_k2 = check_attention("K2", wide_attention,
+                            collections.Counter({(CLI_BATCH, 4096, 4096, 512): 2}), [], gen)
+    torch.cuda.empty_cache()
+    cli_stats["wall_s"] = t13 = time.perf_counter() - t13
+    print(f"  phase 13 took {t13:.1f} s of wall", flush=True)
     wide_shape = (full_batch, 4096, 4096, 512)
     if wide_shape not in wide_stats["K2r"]:
         for key, by_shape in time_train_kernels(gen, [wide_shape]).items():
@@ -3400,6 +3940,15 @@ def main():
             rows[-1]["shared_ds_launch"] = "counted in flash_bwd_dq_d512 (K5's call runs it)"
     for row, wide_row, idx in zip(rows[3:6], rows[6:9], (3, 4, 5)):  # K2r, K4, K5
         row["launches_full_loss_path"] = full_launches[idx] - wide_row["launches"]
+    # phase 13: each wrapper's launches (at every shape: K2r, K4 and K5 with
+    # their d=512 calls) in cli.train's run A (4 full-loss steps at batch 4,
+    # two validations, one sample swap) and its eps-MSE run, and K2 at the
+    # trainer's batch-4 shape
+    for row, key in zip([rows[i] for i in (0, 1, 3, 4, 5)], ("K1", "K2", "K2r", "K4", "K5")):
+        row["launches_train_cli"] = {run: st[key] for run, st in
+                                     cli_stats["launches_train_cli"].items()}
+    rows[1]["batch4"] = {k: b4_k2[k] for k in (
+        "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     steady = lat[1:] or lat
     tsteady = step_times[1:]
     fsteady = full_times[1:]
@@ -3420,11 +3969,15 @@ def main():
           f"{driver_stats['demo_server']['steady_s']:.3f} s, phase 11 {driver_stats['wall_s']:.1f} s; "
           f"test bench (batch {BENCH_BATCH}) {bench_stats['celeba']['swaps_per_s']:.3f} swaps/s, "
           f"peak {bench_stats['celeba']['peak_gib']:.2f} GiB, phase 12 "
-          f"{bench_stats['wall_s']:.1f} s; wall {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{bench_stats['wall_s']:.1f} s; cli.train (batch {CLI_BATCH}) steady step "
+          f"{cli_stats['run_a']['steady_step_s']:.3f} s, loader wait "
+          f"{100 * cli_stats['run_a']['loader_wait_share']:.2f}%, peak "
+          f"{cli_stats['run_a']['peak_gib']:.2f} GiB, phase 13 {cli_stats['wall_s']:.1f} s; "
+          f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
                       "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
                       "zero_tile": zero_tile, "drivers": driver_stats,
-                      "test_bench": bench_stats}), flush=True)
+                      "test_bench": bench_stats, "train_cli": cli_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

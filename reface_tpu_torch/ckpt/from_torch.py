@@ -27,7 +27,11 @@ nothing is renamed here: keys are routed to their tower and checked.
   `arcface_state_dict` (`model_ir_se50.pth`).
 - `expand_conv_in`: zero-pad a 4-channel SD conv_in to REFace's 9.
 - `load_swap_params` / `save_swap_params`: the port's own three state dicts
-  in one torch file (`--save-params`, read back by `--ckpt`).
+  in one torch file (`--save-params`, read back by `--ckpt`; the params
+  file of a training checkpoint, ckpt/io.py, is read the same way).
+- `lpips_state_dict`: LPIPS(alex) weights in the two layouts the JAX
+  convert_lpips reads: a full module dump of the reference's LPIPS, or
+  torchvision's AlexNet merged with the official lin layers.
 
 A key the tower needs and the file lacks raises CheckpointError naming the
 first 20; so does a tensor of the wrong shape (a 4-channel SD conv_in
@@ -38,6 +42,7 @@ each module's storage dtype.
 
 from __future__ import annotations
 
+import re
 import zipfile
 from typing import Mapping
 
@@ -46,7 +51,7 @@ import torch
 __all__ = ["CheckpointError", "load_torch_state_dict", "expand_conv_in",
            "reface_state_dicts", "bisenet_state_dict", "safety_state_dict",
            "clip_vision_state_dict", "hopenet_state_dict", "facerecon_state_dict",
-           "arcface_state_dict",
+           "arcface_state_dict", "lpips_state_dict",
            "load_swap_params", "save_swap_params", "is_swap_params", "UNET_PREFIX",
            "VAE_PREFIX"]
 
@@ -215,6 +220,30 @@ def arcface_state_dict(sd: Mapping, config=None) -> dict:
     return _select(IRSE50(config or ArcFaceConfig(), device="meta"), sd, "arcface")
 
 
+def lpips_state_dict(sd: Mapping) -> dict:
+    """Pretrained LPIPS(alex) -> the port's LPIPS state dict (the JAX
+    _lpips_normalize_keys + convert_lpips). Reads a full module dump
+    (`net.layers.{0,3,6,8,10}.*`, `lin.{i}.1.weight`) or a merged dict of
+    torchvision's AlexNet (`features.{0,3,6,8,10}.*`) and the official lin
+    calibration (`lin{i}.model.1.weight`, or `{i}.1.weight` after its
+    get_state_dict rename). Other keys (AlexNet's classifier) are ignored."""
+    from reface_tpu_torch.nn.lpips import LPIPS
+
+    out = {}
+    for k, v in sd.items():
+        kk = k[len("net."):] if k.startswith("net.") else k
+        if kk.startswith("layers."):
+            kk = "features." + kk[len("layers."):]
+        m = (re.match(r"lin\.?(\d)\.(?:model\.)?1\.weight$", kk)
+             or re.match(r"(\d)\.1\.weight$", kk))
+        if m:
+            kk = f"lin.{m.group(1)}.1.weight"
+        elif kk.startswith("features."):
+            kk = "net.layers." + kk[len("features."):]
+        out[kk] = v
+    return _select(LPIPS(device="meta"), out, "lpips")
+
+
 def save_swap_params(path, params: Mapping) -> None:
     """Write the port's {"unet", "vae", "conditioner"} state dicts to one
     torch file (on the CPU), for `load_swap_params` / `--ckpt`."""
@@ -223,8 +252,10 @@ def save_swap_params(path, params: Mapping) -> None:
 
 
 def is_swap_params(obj) -> bool:
-    """Whether a loaded object is the port's own three state dicts."""
-    return (isinstance(obj, dict) and set(obj) == set(_TOWERS)
+    """Whether a loaded object is the port's own state dicts: the three
+    towers, and perhaps the trainer's others ("lpips", "landmark_head", in a
+    ckpt/io.py checkpoint), which load_swap_params passes over."""
+    return (isinstance(obj, dict) and set(_TOWERS) <= set(obj)
             and all(isinstance(v, dict) for v in obj.values()))
 
 

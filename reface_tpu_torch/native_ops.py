@@ -23,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +50,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
 _FLAGS = ["-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall", "-std=c++17", "-shared"]
 _lib = None
 _image_lib = None
+# one build and one load at a time: the data loader's threads reach both
+# libraries at once on their first items
+_LOCK = threading.RLock()
 
 
 def library_path(src: Path | None = None) -> Path:
@@ -67,26 +71,30 @@ def build(src: Path | None = None) -> Path:
     build fails."""
     src = src or _SRC
     out = library_path(src)
-    if out.exists():
+    with _LOCK:
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            proc = subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError("native library build failed: g++ not found") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"native library build failed (g++ exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        proc = subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError("native library build failed: g++ not found") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"native library build failed (g++ exit {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
 
 
 def _load():
+    with _LOCK:
+        return _lib if _lib is not None else _bind()
+
+
+def _bind():
     global _lib
-    if _lib is not None:
-        return _lib
     lib = ctypes.CDLL(str(build()))
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -120,9 +128,12 @@ def _load():
 
 def image_library():
     """The image-codec library (native/image_codec.cpp), built at first use."""
+    with _LOCK:
+        return _image_lib if _image_lib is not None else _bind_image_library()
+
+
+def _bind_image_library():
     global _image_lib
-    if _image_lib is not None:
-        return _image_lib
     lib = ctypes.CDLL(str(build(_IMAGE_SRC)))
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int)

@@ -141,7 +141,8 @@ class GroupNorm32(nn.Module):
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm computed in fp32 and returned in `out_dtype` (flax's
-    LayerNorm(dtype=...) semantics)."""
+    LayerNorm(dtype=...) semantics); its weight and bias are taken in fp32
+    whatever their storage dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5, out_dtype=torch.float32,
                  device=None):
@@ -149,8 +150,8 @@ class LayerNorm(nn.LayerNorm):
         self.out_dtype = out_dtype
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.out_dtype)
+        return F.layer_norm(x.float(), self.normalized_shape, _cast(self.weight, torch.float32),
+                            _cast(self.bias, torch.float32), self.eps).to(self.out_dtype)
 
 
 class Upsample(nn.Module):

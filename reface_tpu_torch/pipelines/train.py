@@ -29,11 +29,14 @@ added for it: "lpips" (frozen) and, when asked for, "landmark_head"
 (trained). TrainConfig.split_grad 1 and 2, which on the TPU compile the step
 as several programs, here run the recon and the eps portions as separate
 backward passes that accumulate into .grad: the same loss, metrics and
-gradients, with a lower peak memory.
+gradients, with a lower peak memory. TrainConfig.split_acc_dtype "bfloat16"
+rounds the recon portion's gradient to bf16 before the sum, as the JAX step
+does; it saves no memory here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -70,8 +73,7 @@ __all__ = ["TrainConfig", "ReconLossConfig", "TrainState", "TrainModules",
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's TrainConfig (the same defaults, without
-    split_acc_dtype: the gradients accumulate in .grad, in fp32)."""
+    """The JAX package's TrainConfig, with the same defaults."""
 
     learning_rate: float = 1e-5
     warmup_steps: int = 10_000
@@ -87,6 +89,16 @@ class TrainConfig:
     # once more at the collected latents (towers' cotangents, then the
     # chain's pullback). The same loss and gradients at a lower peak memory.
     split_grad: int = 0
+    # the dtype the recon portion's gradient is held in until it is added to
+    # the eps portion's (split_grad 1 and 2): "float32" is exact; "bfloat16"
+    # rounds that contribution to bf16 before the sum, as the JAX step does
+    # (at split_grad 2 its pullback is taken with respect to the trainable
+    # parameters in bf16, the JAX step's pre-cast copy). On the TPU it shrinks
+    # the accumulator tree that the eps program is given; here the eps
+    # portion's backward accumulates onto the recon portion's .grad in place,
+    # so there is no such tree: "bfloat16" changes the rounding only, and at
+    # split_grad 2 runs the chain's forward once more.
+    split_acc_dtype: str = "float32"
     mu_dtype: Optional[str] = None  # AdamW first-moment dtype; None: fp32
     force_unet_remat: bool = True
 
@@ -325,12 +337,20 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
       one optimizer call (in place) and the EMA. train_step.loss_and_grads(
       modules, batch, draws=None, generator=None) -> (loss, metrics) is its
       first half: it leaves the gradients in the parameters' .grad, in as
-      many backward passes as train_cfg.split_grad asks for.
+      many backward passes as train_cfg.split_grad asks for. At split_grad
+      1 and 2, train_step.recon_backward(modules, batch, draws) ->
+      (loss_r, metrics_r) is the recon portion's backward that the eps
+      portion's adds onto, and train_step.recon_cotangents(modules, batch,
+      draws) split_grad=2's first stage (the towers' cotangents of the
+      chain's latents).
     Batch: NHWC target_image, inpaint_image, inpaint_mask in [-1, 1] / {0,1},
     ref_clip224 (CLIP-normalized), and optionally landmarks (B, 136).
     """
     if train_cfg.split_grad not in (0, 1, 2):
         raise ValueError(f"split_grad must be 0, 1 or 2, got {train_cfg.split_grad!r}")
+    if train_cfg.split_acc_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"split_acc_dtype must be 'float32' or 'bfloat16', "
+                         f"got {train_cfg.split_acc_dtype!r}")
     swap_cfg = resolve_train_swap_cfg(swap_cfg, train_cfg, recon)
     dev = resolve_device(device)
     schedule = DiffusionSchedule.create(timesteps=train_cfg.num_timesteps).to(dev)
@@ -426,34 +446,75 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
     split = (train_cfg.split_grad if recon is not None
              and (recon.id_weight > 0 or recon.lpips_weight > 0) else 0)
 
-    def recon_backward_by_stages(modules, batch, draws):
-        """split_grad=2: the recon portion cut at the collected latents,
-        which carry every trainable parameter's influence on it (the towers
-        are frozen). The chain's forward keeps its graph; the towers'
-        backward gives the cotangents of the latents; the chain's backward
-        pulls them back to the parameters."""
+    acc_bf16 = train_cfg.split_acc_dtype == "bfloat16"
+
+    def collect(modules, batch, draws):
+        """(prep's values, the collected latents, ref_flip) of the recon
+        chain's forward, with its graph."""
         p = prep(modules, batch, draws)
         pred_latents, ref_flip = recon_collect(
             unet_fn=p["unet_fn"], conditioning_fn=p["conditioning_fn"],
             schedule=schedule, cfg=recon, z_start9=p["z_start9"], cond=p["cond"],
             ref_clip224=p["ref_clip224"], landmarks=p["landmarks"], t=p["t"],
             noise=p["noise"])
+        return p, pred_latents, ref_flip
+
+    def recon_cotangents(modules, batch, draws):
+        """split_grad=2's first half: (loss_r, metrics_r, the collected
+        latents with the chain's graph, [(i, cotangent)]): the towers'
+        backward gives the cotangent of each latent i that depends on a
+        trainable parameter."""
+        p, pred_latents, ref_flip = collect(modules, batch, draws)
         leaves = [x.detach().requires_grad_(x.requires_grad) for x in pred_latents]
         loss_r, metrics_r = recon_tower_losses(
             decode_fn=p["decode_fn"], embed_id_fn=p["embed_id_fn"],
             lpips_fn=p["lpips_fn"], cfg=recon, pred_latents=leaves,
             ref_flip=ref_flip, rest=p["z_start9"][:, 4:], gt_image=p["gt_image"])
         loss_r.backward()
-        pairs = [(x, leaf.grad) for x, leaf in zip(pred_latents, leaves)
-                 if leaf.grad is not None]
-        torch.autograd.backward([x for x, _ in pairs], [g for _, g in pairs])
-        return loss_r.detach(), {k: v.detach() for k, v in metrics_r.items()}
+        cots = [(i, leaf.grad) for i, leaf in enumerate(leaves) if leaf.grad is not None]
+        return (loss_r.detach(), {k: v.detach() for k, v in metrics_r.items()},
+                pred_latents, cots)
+
+    def pullback(pred_latents, cots) -> None:
+        torch.autograd.backward([pred_latents[i] for i, _ in cots], [g for _, g in cots])
+
+    def recon_backward(modules, batch, draws):
+        """The recon portion's backward of a split step, its gradients left
+        in .grad. split_grad=2 cuts it at the collected latents, which carry
+        every trainable parameter's influence on it (the towers are frozen):
+        the chain's forward keeps its graph, the towers' backward gives the
+        cotangents of the latents, the chain's backward pulls them back to
+        the parameters. With the bf16 accumulator the gradients are left in
+        .grad rounded to bf16, as the JAX step holds them: at split_grad=1
+        rounded once at the end; at split_grad=2 pulled back with respect to
+        the trainable parameters in bf16 (_bf16_leaves), so that each use's
+        contribution is rounded and the sum over the chain's steps is carried
+        in bf16, as JAX's pre-cast bf16 tree carries it. That pullback runs
+        the chain's forward again at the bf16 weights, as JAX's does."""
+        if split == 1:
+            loss_r, metrics_r = loss_fn(modules, batch, draws, portion="recon")
+            loss_r.backward()
+            if acc_bf16:
+                with torch.no_grad():
+                    for prm in named_params(modules).values():
+                        if prm.grad is not None:
+                            prm.grad = prm.grad.to(torch.bfloat16).float()
+            return loss_r.detach(), metrics_r
+        loss_r, metrics_r, pred_latents, cots = recon_cotangents(modules, batch, draws)
+        if acc_bf16:
+            del pred_latents
+            with _bf16_leaves(modules):
+                pullback(collect(modules, batch, draws)[1], cots)
+        else:
+            pullback(pred_latents, cots)
+        return loss_r, metrics_r
 
     def loss_and_grads(modules: TrainModules, batch: dict, draws: dict | None = None,
                        generator: torch.Generator | None = None):
         """(loss, metrics) with the gradients left in the parameters' .grad
-        (set to None first). split_grad > 0: the recon portion's backward,
-        then the eps portion's, accumulating; the same draws in both."""
+        (set to None first). split_grad > 0: the recon portion's backward
+        (recon_backward), then the eps portion's accumulating onto it; the
+        same draws in both."""
         for prm in named_params(modules).values():
             prm.grad = None
         draws = resolve_draws(batch, draws, generator)
@@ -461,12 +522,7 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
             loss, metrics = loss_fn(modules, batch, draws)
             loss.backward()
             return loss.detach(), metrics
-        if split == 1:
-            loss_r, metrics_r = loss_fn(modules, batch, draws, portion="recon")
-            loss_r.backward()
-            loss_r = loss_r.detach()
-        else:
-            loss_r, metrics_r = recon_backward_by_stages(modules, batch, draws)
+        loss_r, metrics_r = recon_backward(modules, batch, draws)
         loss_e, metrics_e = loss_fn(modules, batch, draws, portion="eps")
         loss_e.backward()
         # the recon portion's "loss" is its own total; the step's is the sum
@@ -483,7 +539,28 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         return state, {**metrics, "loss": loss}
 
     train_step.loss_and_grads = loss_and_grads
+    train_step.recon_backward = recon_backward
+    train_step.recon_cotangents = recon_cotangents
     return train_step, loss_fn, init_state
+
+
+@contextlib.contextmanager
+def _bf16_leaves(modules: SwapModules):
+    """Each trainable parameter's data swapped for a bf16 copy of itself
+    (the fp32 tensor kept aside, not copied), so that a backward run inside
+    fills bf16 .grad. On exit the fp32 data comes back and each gradient is
+    widened to fp32 in place of its bf16 one."""
+    trainable = [q for q in named_params(modules).values() if q.requires_grad]
+    kept = [q.data for q in trainable]
+    for q in trainable:
+        q.data = q.data.to(torch.bfloat16)
+    try:
+        yield
+    finally:
+        for q, data in zip(trainable, kept):
+            g, q.grad = q.grad, None
+            q.data = data
+            q.grad = None if g is None else g.float()
 
 
 def params_with_ema(params: dict, state: TrainState) -> dict:

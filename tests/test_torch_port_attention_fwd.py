@@ -30,8 +30,12 @@ import torch
 import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu.ops.attention import _flash_attention as j_flash
 from reface_tpu_torch.ops import attention as PA
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_torch_port_helpers import random_tree
+from test_torch_port_helpers import one_torch_thread
 
 from reface_tpu.ckpt import convert as JC
 from reface_tpu.pipelines.swap import tiny_swap_config as j_tiny
@@ -32,6 +33,8 @@ from reface_tpu_torch.nn.clip import CLIPVisionConfig
 from reface_tpu_torch.nn.safety import SafetyChecker, SafetyCheckerConfig
 from reface_tpu_torch.pipelines.swap import SwapModules, init_params
 from reface_tpu_torch.pipelines.swap import tiny_swap_config as p_tiny
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 WIDE_ARCFACE = "swap.conditioner.arcface.depths=[8,16,16,512]"
 

@@ -56,6 +56,9 @@ from reface_tpu_torch.eval import protocol as PPR
 from reface_tpu_torch.io.images import imread, imwrite, resize_linear
 from reface_tpu_torch.pipelines.swap import FaceSwapper
 from test_torch_port_helpers import init_jax
+from test_torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 SWAPS = 4
 BF16 = 2e-2

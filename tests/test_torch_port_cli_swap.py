@@ -18,7 +18,11 @@ import torch
 
 from test_torch_port_ckpt import WIDE_ARCFACE, _lightning, _towers
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu_torch.io.images import imread, imwrite
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 COMMON = ["--tiny", "--weights-dtype", "float32", "--seed", "3",
           "--overrides", "sample_posterior=False", WIDE_ARCFACE]

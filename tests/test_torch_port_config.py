@@ -15,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu.cli import common as JCLI
 from reface_tpu.core import config as JC
 from reface_tpu_torch.cli import common as PCLI
 from reface_tpu_torch.core import config as PC
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 _YAML = """\
 # a commented, sectioned config

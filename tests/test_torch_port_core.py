@@ -1,5 +1,8 @@
 """reface_tpu_torch core numerics and resizes against the JAX package,
-plus the port's isolation from JAX and its refusal to fall back to the CPU."""
+plus the port's isolation from JAX and its refusal to fall back to the CPU.
+
+The resizes and pooling are in test_torch_port_resize.py.
+"""
 
 import subprocess
 import sys
@@ -10,16 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_helpers import nchw, nhwc
+from test_torch_port_helpers import nhwc
+from test_torch_port_helpers import one_torch_thread
 
 from reface_tpu.core import schedules as JS
 from reface_tpu.core.distributions import DiagonalGaussian as JGauss
-from reface_tpu.ops.pooling import adaptive_avg_pool2d as j_pool
-from reface_tpu.ops.resize import resize_bilinear_no_aa as j_resize
 from reface_tpu_torch.core import schedules as PS
 from reface_tpu_torch.core.distributions import DiagonalGaussian as PGauss
-from reface_tpu_torch.ops.pooling import adaptive_avg_pool2d as p_pool
-from reface_tpu_torch.ops.resize import resize_bilinear_aa, resize_bilinear_no_aa
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.mark.parametrize("kind", ["linear", "cosine", "sqrt_linear", "sqrt"])
@@ -82,40 +84,9 @@ def test_diagonal_gaussian():
     assert s.shape == p.mean.shape and torch.isfinite(z).all()
 
 
-@pytest.mark.parametrize("shape,out", [((2, 64, 64, 1), 8), ((1, 33, 47, 3), 20),
-                                       ((1, 8, 8, 2), 16)])
-def test_resize_no_aa_matches_jax(shape, out):
-    x = np.random.default_rng(2).uniform(size=shape).astype(np.float32)
-    ref = j_resize(jnp.asarray(x), out, out)
-    got = resize_bilinear_no_aa(nchw(x), out, out)
-    np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-6, rtol=0)
-
-
-def test_resize_aa_matches_jax_image_resize():
-    """The CLIP target crop: jax.image.resize bilinear antialiases on shrink."""
-    import jax
-
-    x = np.random.default_rng(3).uniform(size=(2, 64, 64, 3)).astype(np.float32)
-    ref = jax.image.resize(jnp.asarray(x), (2, 224, 224, 3), "bilinear")
-    got = resize_bilinear_aa(nchw(x), 224, 224)
-    np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-5, rtol=0)
-    x = np.random.default_rng(4).uniform(size=(1, 512, 512, 3)).astype(np.float32)
-    ref = jax.image.resize(jnp.asarray(x), (1, 224, 224, 3), "bilinear")
-    got = resize_bilinear_aa(nchw(x), 224, 224)
-    np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-5, rtol=0)
-
-
-@pytest.mark.parametrize("n,m", [(224, 256), (188, 112), (64, 20)])
-def test_adaptive_pool_matches_jax(n, m):
-    x = np.random.default_rng(5).normal(size=(2, n, n, 3)).astype(np.float32)
-    ref = j_pool(jnp.asarray(x), m, m)
-    got = p_pool(nchw(x), m, m)
-    np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-5, rtol=0)
-
-
 def test_port_imports_no_jax():
     """The port imports neither jax nor reface_tpu, nor cv2 or PIL, which
-    it does not depend on (fresh interpreter)."""
+    it does not depend on (fresh interpreter), orbax neither."""
     code = (
         "import sys\n"
         "import reface_tpu_torch, reface_tpu_torch.pipelines.swap, "
@@ -136,9 +107,12 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.eval.protocol, reface_tpu_torch.data, "
         "reface_tpu_torch.data.augment, reface_tpu_torch.data.test_bench, "
         "reface_tpu_torch.data.loader, reface_tpu_torch.cli.evaluate, "
-        "reface_tpu_torch.cli.inference_test_bench\n"
+        "reface_tpu_torch.cli.inference_test_bench, reface_tpu_torch.cli.train, "
+        "reface_tpu_torch.cli.prepare_data, reface_tpu_torch.data.celeba, "
+        "reface_tpu_torch.data.ffhq, reface_tpu_torch.data.synthetic, "
+        "reface_tpu_torch.ckpt.io, reface_tpu_torch.core.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'reface_tpu', 'cv2', 'PIL')]\n"
+        "('jax', 'flax', 'orbax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -31,7 +31,11 @@ import torch
 from test_torch_port_cli_swap import COMMON, _fixed_latent
 from test_torch_port_ckpt import _diffusers_safety, _lightning, _towers
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu_torch.io.images import imdecode, imencode
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _multipart(fields):

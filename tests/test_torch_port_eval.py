@@ -44,6 +44,9 @@ from reface_tpu_torch.nn.arcface import ArcFaceConfig, IRSE50
 from reface_tpu_torch.nn.clip import CLIPVisionTower
 from reface_tpu_torch.pipelines.swap import init_params
 from test_torch_port_helpers import assert_close, init_jax, load, nchw
+from test_torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 REL = 1e-6
 # a narrow IR-SE-50 (the JAX converter fixes the output fc at 512 channels)

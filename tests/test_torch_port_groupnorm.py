@@ -16,9 +16,12 @@ import torch
 from jax.experimental import pallas as pl
 
 from test_torch_port_helpers import nchw, nhwc
+from test_torch_port_helpers import one_torch_thread
 
 from reface_tpu.ops.groupnorm import group_norm_silu as j_gn
 from reface_tpu_torch.ops.groupnorm import SLICE_BYTES, cluster_plan, group_norm_silu_plain
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.fixture

@@ -24,7 +24,11 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu_torch.io import images as I
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 RNG = np.random.default_rng(0)
 

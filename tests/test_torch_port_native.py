@@ -15,11 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu import native_ops as jn
 from reface_tpu.nn import landmarks as JL
 from reface_tpu_torch import native_ops as pn
 from reface_tpu_torch.nn import landmarks as PL
 from tools.convert_dlib_sp import write_model
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-6, rtol=1e-6)
@@ -46,6 +50,22 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match=r"(?s)native library build failed.*error:"):
         pn.u8_to_pm1(np.zeros(4, np.uint8))
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_first_use_from_threads(tmp_path, monkeypatch):
+    """The data loader's threads reach both libraries at once on their first
+    items: one build each, every thread gets the library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setattr(pn, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(pn, "_lib", None)
+    monkeypatch.setattr(pn, "_image_lib", None)
+    calls = [pn._load, pn.image_library] * 4
+    with ThreadPoolExecutor(len(calls)) as pool:
+        libs = list(pool.map(lambda f: f(), calls))
+    assert len({id(lib) for lib in libs}) == 2
+    assert sorted(p.name.split("_")[0] for p in (tmp_path / "build").iterdir()) == \
+        ["libimage", "libreface"]
 
 
 def test_warps_match():

@@ -37,6 +37,7 @@ from reface_tpu_torch.nn.landmarks import (
 )
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 F32 = torch.float32
 TINY_LM = dict(widths=(8, 16, 32, 32), input_size=64)
 

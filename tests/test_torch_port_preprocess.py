@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_port_helpers import ATOL, nchw, nhwc
+from test_torch_port_helpers import one_torch_thread
 
 from reface_tpu.data.synthetic import LANDMARK68_TEMPLATE
 from reface_tpu.preprocess import align as JA
@@ -25,6 +26,8 @@ from reface_tpu_torch.ops.resize import resize_nearest
 from reface_tpu_torch.preprocess import align as PA
 from reface_tpu_torch.preprocess import detect as PD
 from reface_tpu_torch.preprocess import masks as PM
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def faces(b, h, w, seed=0):

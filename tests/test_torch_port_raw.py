@@ -34,6 +34,7 @@ from reface_tpu_torch.pipelines.raw import RawSwapPipeline, tiny_raw_config
 from reface_tpu_torch.pipelines.swap import FaceSwapper, tiny_swap_config
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 PATH_TOL = 1e-3  # a whole path, on [0,1] frames
 
 

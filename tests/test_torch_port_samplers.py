@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from test_torch_port_helpers import nchw, nhwc
+from test_torch_port_helpers import one_torch_thread
 from test_torch_port_swap import _dedup, _j_model, _p_model
 
 from reface_tpu.core.schedules import DDIMTables as JTables
@@ -34,6 +35,8 @@ from reface_tpu_torch.diffusion.dpm_solver import dpm_solver_sample as p_dpm
 from reface_tpu_torch.diffusion.plms import plms_sample as p_plms
 from reface_tpu_torch.parallel import tiling as PT
 from reface_tpu_torch.pipelines.swap import FaceSwapper, tiny_swap_config
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from test_torch_port_helpers import nchw, nhwc, random_tree
+from test_torch_port_helpers import one_torch_thread
 
 from reface_tpu.core.schedules import DDIMTables as JTables
 from reface_tpu.core.schedules import DiffusionSchedule as JSchedule
@@ -29,6 +30,8 @@ from reface_tpu_torch.core.schedules import DiffusionSchedule as PSchedule
 from reface_tpu_torch.diffusion.ddim import ddim_sample as p_ddim
 from reface_tpu_torch.pipelines.swap import FaceSwapper as PSwapper
 from reface_tpu_torch.pipelines.swap import tiny_swap_config as p_tiny
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _inputs(b=2, size=64, seed=0):

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from test_torch_port_helpers import assert_close, init_jax, load, nchw, nhwc, random_tree
+from test_torch_port_helpers import one_torch_thread
 from test_torch_port_swap import _inputs
 
 from reface_tpu.nn.clip import CLIPConditioner as JCLIP
@@ -46,6 +47,8 @@ from reface_tpu_torch.nn.vae import AutoencoderKL as PVAE
 from reface_tpu_torch.ops import quant as PQ
 from reface_tpu_torch.pipelines.swap import FaceSwapper as PSwapper
 from reface_tpu_torch.pipelines.swap import tiny_swap_config as p_tiny
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 rp = dataclasses.replace
 RNG = np.random.default_rng(0)

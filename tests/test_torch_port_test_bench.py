@@ -25,6 +25,8 @@ import os
 import numpy as np
 import pytest
 
+from test_torch_port_helpers import one_torch_thread
+
 from reface_tpu.data.loader import PrefetchLoader as JPrefetchLoader
 from reface_tpu.data.test_bench import TestBenchConfig as JTestBenchConfig
 from reface_tpu.data.test_bench import TestBenchDataset as JTestBenchDataset
@@ -33,6 +35,8 @@ from reface_tpu_torch.data import PrefetchLoader, TestBenchConfig, TestBenchData
 from reface_tpu_torch.eval import protocol as PP
 from reface_tpu_torch.io.images import imwrite
 from reface_tpu_torch.nn.arcface import CLIP_STD
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 LEVEL = 2.0 / 255.0  # one uint8 level in [-1, 1]
 F32 = 1e-5

@@ -29,9 +29,11 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from test_torch_port_helpers import nchw, nhwc, random_tree
+from test_torch_port_helpers import one_torch_thread
 
 from reface_tpu.nn.vae import AutoencoderKL as JVAE
 from reface_tpu.pipelines.swap import FaceSwapper as JSwapper
@@ -41,6 +43,8 @@ from reface_tpu_torch.nn.layers import GroupNorm32
 from reface_tpu_torch.nn.vae import AutoencoderKL as PVAE
 from reface_tpu_torch.pipelines.swap import SwapModules
 from reface_tpu_torch.pipelines.swap import tiny_swap_config as p_tiny
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ZERO_TILE_TOL = 3e-3  # 2x the JAX eager-vs-jit spread after the fold (docstring)
 TILES = dict(vae_tile=4, vae_tile_stride=2, sample_posterior=False)
