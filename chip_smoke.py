@@ -160,7 +160,28 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      FaceSwapper.swap on the same weights; cli.prepare_data
      expand-sd-checkpoint, estimate-ffhq-masks and crop-and-mask; K2 at the
      trainer's batch-4 shape. At most two full checkpoints (~12 GiB each)
-     are on disk at once, and every file is deleted at the end.
+     are on disk at once, and every file is deleted at the end;
+  14. (run after phase 12) the gradient-guided swap and the priors on phase
+     3's towers: FaceSwapper.swap_guided at batch 2, DDIM-50, CFG 3 with the
+     ID term (one warm-up, one timed request; the gradient at the 24 steps
+     with 5 < t < 500), its launches by wrapper and shape against the plan
+     from the config (K2r, K4 and K5 at (2,4096,4096,512) once a gated
+     step, K2 only for the encode and the final decode); one guided step by
+     CUDA events (the CFG eps, the guidance gradient, the decode's forward
+     and backward); guidance scale 0 against FaceSwapper.swap; one step's
+     ID loss and latent gradient against attn_impl="einsum" (phase 7's
+     limits); a request with id, seg and exp (fp32 BiSeNet and D3DFR files
+     written as the reference's; one decode a step at all 50 steps); DIFT's
+     index agreement between bf16 and fp32 features; the tiny fp32 guided
+     swap on the card against the CPU port; cli.swap --guidance id,seg,exp
+     --precropped and raw (DDIM-10), each within one level of its direct
+     call; cli.prepare_data make-priors --method tps (a LandmarkNet file)
+     and dift (the towers' params file) on a CelebA-style tree of 4 pairs
+     at 512 px, each prior the target outside its mask, seconds a pair;
+     cli.inference_test_bench --prior-dir on the DIFT priors within one
+     level of FaceSwapper.swap(prior_image=...), K2 encoding the prior too;
+     K2r, K4 and K5 at (2,4096,4096,512) against their plain versions,
+     timed beside their bounds and sdpa. The files are deleted at the end.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
 ...}. Any failure exits non-zero before that line; without a CUDA device it
@@ -169,6 +190,7 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import dataclasses
@@ -193,6 +215,7 @@ from reface_tpu_torch.cli import inference_test_bench as cli_test_bench
 from reface_tpu_torch.cli import prepare_data as cli_prepare
 from reface_tpu_torch.cli import swap as cli_swap
 from reface_tpu_torch.cli import train as cli_train
+from reface_tpu_torch.core.schedules import DDIMTables, DiffusionSchedule
 from reface_tpu_torch.data import (
     CelebAHQConfig,
     CelebAHQDataset,
@@ -206,7 +229,7 @@ from reface_tpu_torch.eval import CLIP_B32, FaceReconCoeffNet, Hopenet
 from reface_tpu_torch.eval import expression_coeffs, pose_angles, protocol as eval_protocol
 from reface_tpu_torch.eval.fid import clip_features
 from reface_tpu_torch.io import images
-from reface_tpu_torch.nn.arcface import IRSE50, ArcFaceConfig
+from reface_tpu_torch.nn.arcface import CLIP_MEAN, CLIP_STD, IRSE50, ArcFaceConfig
 from reface_tpu_torch.nn.clip import CLIPVisionTower
 from reface_tpu_torch.nn.bisenet import BiSeNet, BiSeNetConfig, parse_faces
 from reface_tpu_torch.nn.conditioner import REFaceConditioner
@@ -2540,6 +2563,564 @@ def test_bench_path(cpu_params: dict, smi: str) -> dict:
     return stats
 
 
+# ------------------------------------------------------------------ phase 14
+
+# The gradient-guided swap (FaceSwapper.swap_guided) and the priors
+# (cli.prepare_data make-priors) on phase 3's towers. The guided requests run
+# DDIM-50 at batch 2; the drivers' guided runs (cli.swap --guidance) are cut
+# to DDIM-10 (GUIDED_CLI_STEPS): they check the wiring, which the depth does
+# not change.
+ALL_TERMS = ("id", "seg", "exp")
+GUIDED_CLI_STEPS = 10
+PRIOR_PAIRS = 4
+# a prior start's test bench at one batch of its pairs
+PRIOR_BATCH = PRIOR_PAIRS
+# the tiny fp32 guided swap, card against the CPU port (phase 5's limit)
+GUIDED_TINY_TOL = 1e-3
+# the BiSeNet classes whose region make-priors pastes (skin to lips: the face
+# without hair, neck and cloth)
+PRIOR_FACE = tuple(range(1, 13))
+DEV = "cuda"
+
+
+def guided_steps(cfg: SwapConfig, terms) -> int:
+    """The steps of a request at which the guidance gradient is taken: the ID
+    term's gate is open at 5 < t < 500; "seg" and "exp" at every step."""
+    ts = DDIMTables.create(DiffusionSchedule.create(), cfg.ddim_steps, eta=cfg.eta,
+                           method=cfg.ddim_discretize).timesteps.tolist()
+    return len(ts) if set(terms) - {"id"} else sum(5 < t < 500 for t in ts)
+
+
+def guided_plan(cfg: SwapConfig, terms, batch: int, extra_k2: int = 0) -> dict:
+    """Launches of one guided request by wrapper and shape, from the config:
+    the swap's K1 and K2 (mode_plan: the UNet runs under no_grad, the encode
+    and the final decode through K2), and at each guided step one decode
+    under autograd through FlashAttention at the VAE's d=512: the residual
+    forward, then one K4 and one K5 call (two launches) in the backward."""
+    p = mode_plan(cfg, cfg.ddim_steps, batch=batch)
+    n = cfg.latent_size**2
+    wide = (batch, n, n, cfg.vae.ch * cfg.vae.ch_mult[-1])
+    k2 = collections.Counter(p["K2"])
+    k2[wide] += extra_k2
+    steps = guided_steps(cfg, terms) if terms else 0
+    flash = {wide: steps} if steps else {}
+    nonzero = lambda c: {k: v for k, v in c.items() if v}
+    return {"self_attention_smalld": nonzero(p["K1"]), "wide_attention": nonzero(k2),
+            "group_norm_silu": {}, "flash_attention_fwd": flash, "flash_bwd_dkv": flash,
+            "flash_bwd_dq": flash}
+
+
+@contextlib.contextmanager
+def recorded_launches(out: dict):
+    """Every wrapper's launches by shape inside the block, into `out`."""
+    for k in KERNELS:
+        k.shapes = collections.Counter()
+    try:
+        yield out
+    finally:
+        out.update({k.__name__: dict(k.shapes) for k in KERNELS})
+        for k in KERNELS:
+            k.shapes = None
+
+
+def check_plan(name: str, got: dict, plan: dict) -> dict:
+    """The launches by wrapper and shape against the plan; returns each
+    wrapper's total."""
+    if got != plan:
+        bad = {k: (got.get(k), plan.get(k)) for k in plan if got.get(k) != plan.get(k)}
+        fail(f"{name}: launches by shape (got, planned) {bad}")
+    return {k: sum(v.values()) for k, v in got.items()}
+
+
+def check_image(name: str, out, shape):
+    if (tuple(out.shape) != tuple(shape) or not bool(torch.isfinite(out).all())
+            or float(out.abs().max()) > 1.0):
+        fail(f"{name}: output {tuple(out.shape)} not finite {shape} in [-1, 1]")
+
+
+def write_guidance_towers(d: Path) -> dict:
+    """Seeded fp32 BiSeNet (face-parsing's 79999_iter.pth keys), D3DFR
+    (Deep3DFaceRecon's net_recon.backbone.* and net_recon.final_layers.*)
+    and LandmarkNet files. Returns {name: path}."""
+    f32 = lambda sd: {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+                      for k, v in sd.items()}
+    towers = {"bisenet": init_params(BiSeNet(BiSeNetConfig(dtype=torch.float32), device=DEV),
+                                     seed=9, dezero=True),
+              "d3dfr": init_params(FaceReconCoeffNet(device=DEV), seed=10, dezero=True),
+              "landmarks": init_params(LandmarkNet(LandmarkNetConfig(), device=DEV), seed=8)}
+    files = {"bisenet": f32(towers["bisenet"].state_dict()),
+             "d3dfr": {("net_recon." if k.startswith("final_layers.") else
+                        "net_recon.backbone.") + k: v
+                       for k, v in f32(towers["d3dfr"].state_dict()).items()},
+             "landmarks": f32(towers["landmarks"].state_dict())}
+    paths = {}
+    for name, sd in files.items():
+        paths[name] = d / f"{name}.pth"
+        torch.save(sd, paths[name])
+    return paths
+
+
+def guided_request(swapper, r: int, terms, towers=(None, None), **kw):
+    """One guided request of make_request(r) at batch 2: (output, seconds,
+    launches by wrapper and shape)."""
+    cfg = swapper.config
+    req = make_request(r, cfg.image_size, DEV)
+    got = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_launches(got):
+        out = swapper.swap_guided(**req, generator=torch.Generator(device=DEV).manual_seed(r),
+                                  guidance=terms, seg_logits_fn=towers[0],
+                                  exp_coeff_fn=towers[1], **kw)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_image(f"guided request {r} {terms}", out, (BATCH, cfg.image_size, cfg.image_size, 3))
+    return out, secs, got
+
+
+def id_loss_at(swapper, r: int):
+    """The ID guidance term of swap_guided on make_request(r), as the guided
+    sampler builds it, and a latent to take its gradient at."""
+    from reface_tpu_torch.diffusion.guidance import combine_guidance, make_id_guidance
+
+    cfg = swapper.config
+    req = make_request(r, cfg.image_size, DEV)
+    ref, mask = nchw(req["ref_clip224"]), nchw(req["inpaint_mask"])
+    r3 = lambda a: torch.as_tensor(a, device=DEV).reshape(1, 3, 1, 1)
+    src_pm1 = (ref * r3(CLIP_STD) + r3(CLIP_MEAN)) * 2.0 - 1.0
+    decode = functools.partial(swapper.decode_latent, for_grad=True)
+    loss_fn = combine_guidance(make_id_guidance(decode, swapper.embed_id, src_pm1,
+                                                inpaint_region=1.0 - mask))
+    g = torch.Generator(device=DEV).manual_seed(r)
+    x = torch.randn((BATCH, 4, cfg.latent_size, cfg.latent_size), generator=g, device=DEV)
+    return loss_fn, x
+
+
+def loss_and_grad(loss_fn, x, t: int):
+    xx = x.detach().requires_grad_(True)
+    loss = loss_fn(xx, t)
+    (g,) = torch.autograd.grad(loss, xx)
+    return loss.detach().float(), g.float()
+
+
+def guided_step_breakdown(swapper) -> dict:
+    """One guided step's parts by CUDA events: the CFG eps (one dedup UNet
+    forward under inference mode), the ID guidance gradient (decode under
+    autograd, ArcFace, the backward), and inside it the decode's forward and
+    its forward and backward alone."""
+    cfg = swapper.config
+    x9, t, ctx2 = unet_inputs(cfg, seed=7, ctx_batch=2 * BATCH)
+
+    def eps():
+        with torch.inference_mode():
+            swapper.unet(x9, t, ctx2, cfg_expand=True)
+
+    loss_fn, x = id_loss_at(swapper, 21)
+    decode = functools.partial(swapper.decode_latent, for_grad=True)
+
+    def dec_fwd():
+        decode(x.detach().requires_grad_(True))
+
+    def dec_fwd_bwd():
+        xx = x.detach().requires_grad_(True)
+        torch.autograd.grad(decode(xx).square().mean(), xx)
+
+    out = {"eps_ms": time_ms(eps), "guidance_grad_ms": time_ms(lambda: loss_and_grad(loss_fn, x, 261)),
+           "decode_fwd_ms": time_ms(dec_fwd), "decode_fwd_bwd_ms": time_ms(dec_fwd_bwd)}
+    step = out["eps_ms"] + out["guidance_grad_ms"]
+    out["decode_fwd_bwd_share"] = out["decode_fwd_bwd_ms"] / step
+    out["decode_fwd_share"] = out["decode_fwd_ms"] / step
+    print(f"  one guided step (batch {BATCH}) by CUDA events: CFG eps {out['eps_ms']:.2f} ms, "
+          f"ID guidance gradient {out['guidance_grad_ms']:.2f} ms; the decode under autograd "
+          f"{out['decode_fwd_ms']:.2f} ms forward, {out['decode_fwd_bwd_ms']:.2f} ms forward and "
+          f"backward: {100 * out['decode_fwd_bwd_share']:.1f}% of the step "
+          f"({100 * out['decode_fwd_share']:.1f}% its forward)", flush=True)
+    return out
+
+
+def guided_grad_vs_einsum(swapper, cpu_params: dict) -> dict:
+    """One guided step's ID loss and latent gradient with the kernels (the
+    decoder's mid-block through K2r, then K4 and K5) against the same step
+    with the plain attention product (attn_impl="einsum"), in bf16 on the
+    towers of the path and in fp32 on fp32 copies of them (the kernels'
+    fp32 versions), each route also against the fp32 plain one. The fp32
+    routes are held to phase 7's limits (TRAIN_TOL); in bf16 the kernels'
+    route must be no further from the fp32 result than twice the plain
+    route is."""
+    cfg = swapper.config
+    cfg32 = dataclasses.replace(
+        cfg, vae=dataclasses.replace(cfg.vae, dtype=torch.float32),
+        conditioner=dataclasses.replace(cfg.conditioner, arcface=dataclasses.replace(
+            cfg.conditioner.arcface, dtype=torch.float32)))
+    fp32 = FaceSwapper(cfg32, cpu_params, device=DEV)
+    n = cfg.latent_size**2
+    wide = {(BATCH, n, n, cfg.vae.ch * cfg.vae.ch_mult[-1]): 1}
+    out, res = {}, {}
+    for kind, sw in (("bf16", swapper), ("fp32", fp32)):
+        loss_fn, x = id_loss_at(sw, 22)
+        got = {}
+        with recorded_launches(got):
+            res[kind, "kernels"] = loss_and_grad(loss_fn, x, 261)
+            torch.cuda.synchronize()
+        check_plan(f"one guided gradient ({kind})", got, {
+            "self_attention_smalld": {}, "wide_attention": {}, "group_norm_silu": {},
+            "flash_attention_fwd": wide, "flash_bwd_dkv": wide, "flash_bwd_dq": wide})
+        attn = sw.vae.decoder.mid.attn_1
+        attn.attn_impl = "einsum"
+        try:
+            res[kind, "einsum"] = loss_and_grad(loss_fn, x, 261)
+        finally:
+            attn.attn_impl = "auto"
+        if kind == "fp32":
+            with torch.no_grad():
+                img = sw.decode_latent(x)
+            out["clamped_share"] = (img.abs() >= 1.0).float().mean().item()
+    del fp32
+    torch.cuda.empty_cache()
+    ref_l, ref_g = res["fp32", "einsum"]
+    for key, (l, g) in res.items():
+        out["/".join(key)] = {"loss": l.item(), "loss_rel": ((l - ref_l).abs() / ref_l.abs()).item(),
+                              "grad_rel_l2": ((g - ref_g).norm() / ref_g.norm()).item()}
+    (l16, g16), (l16e, g16e) = res["bf16", "kernels"], res["bf16", "einsum"]
+    out["bf16 kernels vs bf16 einsum"] = {
+        "loss_rel": ((l16 - l16e).abs() / l16e.abs()).item(),
+        "grad_rel_l2": ((g16 - g16e).norm() / g16e.norm()).item()}
+    print(f"  one guided step's ID loss and latent gradient (t = 261, batch {BATCH}; "
+          f"{100 * out['clamped_share']:.1f}% of the decoded pixels on the clamp), against the "
+          f"fp32 towers' plain route (|grad| {ref_g.norm().item():.3e}): "
+          + "; ".join(f"{k} loss rel {v['loss_rel']:.3e}, grad rel L2 {v['grad_rel_l2']:.3e}"
+                      for k, v in out.items() if isinstance(v, dict)), flush=True)
+    f32 = out["fp32/kernels"]
+    if not (f32["loss_rel"] <= TRAIN_TOL["loss"] and f32["grad_rel_l2"] <= TRAIN_TOL["grad"]):
+        fail("the fp32 guided gradient through the kernels disagrees with the einsum route")
+    if not out["bf16/kernels"]["grad_rel_l2"] <= 2 * out["bf16/einsum"]["grad_rel_l2"]:
+        fail("the bf16 guided gradient through the kernels is further from fp32 than the "
+             "einsum route's allows")
+    return out
+
+
+def guided_tiny_reference(paths: dict) -> dict:
+    """tiny_swap_config at 256 px with phase 5's VAE (mid-block 512 wide: the
+    decode under autograd reaches K2r, K4 and K5 at 1024 tokens), 4 DDIM
+    steps (the ID gate open at t = 251), fp32, all three terms with the fp32
+    BiSeNet and D3DFR files: the card against the port on the CPU, x_T
+    fixed, no random draw."""
+    import argparse
+
+    base = tiny_swap_config(image_size=256, ddim_steps=4)
+    cfg = dataclasses.replace(base, sample_posterior=False,
+                              vae=dataclasses.replace(base.vae, ch=32, ch_mult=(1, 2, 4, 16)))
+    card = FaceSwapper(cfg, device=DEV)
+    for i, m in enumerate(card.towers().values()):
+        init_params(m, seed=40 + i, dezero=True)
+    cpu = FaceSwapper(cfg, device="cpu")
+    cpu.load_params({name: {k: v.cpu() for k, v in m.state_dict().items()}
+                     for name, m in card.towers().items()})
+    args = argparse.Namespace(bisenet_ckpt=str(paths["bisenet"]), d3dfr_ckpt=str(paths["d3dfr"]))
+    req = make_request(6, 256, "cpu")
+    req["x_T"] = torch.randn((BATCH, 32, 32, 4), generator=torch.Generator().manual_seed(6))
+    outs, secs = {}, {}
+    for name, sw in (("card", card), ("cpu", cpu)):
+        seg_fn, exp_fn = cli_swap.guidance_towers(args, ALL_TERMS, sw.device)
+        reset_counts()
+        t0 = time.perf_counter()
+        outs[name] = sw.swap_guided(**{k: v.to(sw.device) for k, v in req.items()},
+                                    guidance=ALL_TERMS, seg_logits_fn=seg_fn,
+                                    exp_coeff_fn=exp_fn).cpu()
+        secs[name] = time.perf_counter() - t0
+        if name == "card":
+            launched = counts()
+    unguided = cpu.swap(**req)
+    err = (outs["card"] - outs["cpu"]).abs().max().item()
+    moved = (outs["cpu"] - unguided).abs().max().item()
+    print(f"  tiny 256 px guided swap (id, seg, exp; 4 steps), card vs CPU: max abs err "
+          f"{err:.3e} (tol {GUIDED_TINY_TOL:.0e}); {moved:.3f} from the unguided swap; card "
+          f"{secs['card']:.2f} s, CPU {secs['cpu']:.2f} s; launches (K1, K2, K3, K2r, K4, "
+          f"K5) {launched}", flush=True)
+    if min(launched[:2]) == 0 or min(launched[3:]) == 0:
+        fail("the tiny guided run did not reach K1, K2, K2r, K4 and K5")
+    if not err <= GUIDED_TINY_TOL or not moved > 1e-3:
+        fail("the card's tiny guided swap disagrees with the CPU port, or did not move")
+    return {"max_abs_err": err, "moved_from_unguided": moved, "launches": launched}
+
+
+def dift_agreement(swapper, cpu_params: dict, target, source) -> float:
+    """The share of DIFT lattice cells (grid 128) whose source index is the
+    same with the swap towers' bf16 features as with an fp32 copy's."""
+    from reface_tpu_torch.preprocess.priors import dift_index, make_unet_feats_fn
+
+    cfg = swapper.config
+    cfg32 = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, dtype=torch.float32),
+                                vae=dataclasses.replace(cfg.vae, dtype=torch.float32))
+    fp32 = FaceSwapper(cfg32, {k: cpu_params[k] for k in ("unet", "vae", "conditioner")},
+                       device=DEV)
+    idx = {}
+    for name, sw in (("bf16", swapper), ("fp32", fp32)):
+        feats = make_unet_feats_fn(sw)
+        idx[name] = dift_index(feats(target), feats(source), 128)
+    del fp32
+    torch.cuda.empty_cache()
+    return (idx["bf16"] == idx["fp32"]).float().mean().item()
+
+
+def write_prior_tree(d: Path) -> dict:
+    """A CelebA-style test bench of PRIOR_PAIRS pairs (1024 px baseline
+    JPEGs, 512 px 19-class masks) and make-priors' directories: targets/ and
+    sources/ (each pair's images at 512 px as PNGs under the target's id, so
+    that the i-th sorted of each pair up) and masks/ (white on PRIOR_FACE)."""
+    tb = TestBenchConfig(str(d / "celeba"), "celeba", num_pairs=PRIOR_PAIRS)
+    m19 = mask19(512)
+    for sub in ("targets", "sources", "masks"):
+        (d / sub).mkdir()
+    for k, (tid, sid) in enumerate(tb.pair_ids()):
+        for j, i in enumerate((tid, sid)):
+            for path, arr in ((tb.img_path(i), photo_like(400 + 2 * k + j, 1024, 1024)),
+                              (tb.mask_path(i), m19)):
+                Path(path).parent.mkdir(parents=True, exist_ok=True)
+                images.imwrite(path, arr)
+        for sub, i in (("targets", tid), ("sources", sid)):
+            images.imwrite(d / sub / f"{tid}.png",
+                           images.resize_linear(images.imread(tb.img_path(i)), 512, 512))
+        images.imwrite(d / "masks" / f"{tid}.png",
+                       (torch.isin(torch.from_numpy(m19), torch.tensor(PRIOR_FACE)).numpy()
+                        * 255).astype("uint8"))
+    return {"bench": tb}
+
+
+def guided_path(cpu_params: dict, smi: str, gen) -> dict:
+    """Phase 14: the gradient-guided swap and the priors on phase 3's towers.
+    Returns its stats; each run's launches are held by wrapper and shape to
+    the plan from the config (every count set to 0 before the run)."""
+    cfg = SwapConfig()
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_guided"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    stats = {}
+    try:
+        paths = write_guidance_towers(d)
+        save_swap_params(d / "params.pt", cpu_params)
+        ckpt = ["--ckpt", str(d / "params.pt")]
+        swapper = FaceSwapper(cfg, cpu_params, device=DEV)
+
+        # (a) the ID-guided request: one warm-up, one timed
+        plan = guided_plan(cfg, ("id",), BATCH)
+        lat = []
+        for r in range(2):
+            reset_counts()  # the guided path's run starts here
+            torch.cuda.reset_peak_memory_stats()
+            out, secs, got = guided_request(swapper, 10 + r, ("id",))
+            launches = check_plan(f"guided request {r}", got, plan)
+            lat.append(secs)
+        peak = torch.cuda.max_memory_allocated()
+        n_id = guided_steps(cfg, ("id",))
+        print(f"  {smi}: swap_guided(guidance=('id',)), batch {BATCH}, DDIM-{cfg.ddim_steps}, "
+              f"CFG {cfg.cfg_scale}: first {lat[0]:.3f} s, timed {lat[1]:.3f} s, peak "
+              f"{peak / 2**30:.2f} GiB; launches {launches} (as planned by shape: the gradient "
+              f"at the {n_id} steps with 5 < t < 500)", flush=True)
+        stats["id"] = {"first_s": lat[0], "timed_s": lat[1], "peak_gib": peak / 2**30,
+                       "launches": launches, "guided_steps": n_id}
+        stats["step"] = guided_step_breakdown(swapper)
+
+        # (b) guidance scale 0 against FaceSwapper.swap on the same draws
+        req = make_request(30, cfg.image_size, DEV)
+        a = swapper.swap_guided(**req, generator=torch.Generator(device=DEV).manual_seed(30),
+                                guidance_scale=0.0)
+        b = swapper.swap(**req, generator=torch.Generator(device=DEV).manual_seed(30))
+        same = torch.equal(a, b)
+        err = (a - b).abs().max().item()
+        print(f"  swap_guided at guidance_scale=0 against FaceSwapper.swap, the same generator: "
+              f"bit-equal {same} (max abs {err:.3e}; else limit {GUIDED_TINY_TOL:.0e})",
+              flush=True)
+        if not (same or err <= GUIDED_TINY_TOL):
+            fail("swap_guided at scale 0 differs from FaceSwapper.swap")
+        stats["scale0_bit_equal"] = same
+        del a, b
+
+        # (c) one guided step's gradient, kernels against einsum
+        stats["grad_vs_einsum"] = guided_grad_vs_einsum(swapper, cpu_params)
+
+        # (d) all three terms, one decode a step: the gradient at all 50 steps
+        args = argparse.Namespace(bisenet_ckpt=str(paths["bisenet"]),
+                                  d3dfr_ckpt=str(paths["d3dfr"]))
+        towers = cli_swap.guidance_towers(args, ALL_TERMS, torch.device(DEV))
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out3, secs3, got = guided_request(swapper, 12, ALL_TERMS, towers)
+        launches3 = check_plan("guided request (id, seg, exp)", got,
+                               guided_plan(cfg, ALL_TERMS, BATCH))
+        peak3 = torch.cuda.max_memory_allocated()
+        print(f"  swap_guided(guidance=('id', 'seg', 'exp')) with fp32 BiSeNet (256 px) and "
+              f"D3DFR (224 px), batch {BATCH}: {secs3:.3f} s (first call of both towers), peak "
+              f"{peak3 / 2**30:.2f} GiB; launches {launches3} (as planned: one decode a step at "
+              f"all {cfg.ddim_steps} steps)", flush=True)
+        stats["id_seg_exp"] = {"s": secs3, "peak_gib": peak3 / 2**30, "launches": launches3}
+        del out3, towers
+
+        # (e) DIFT's correspondence, bf16 against fp32 features, on one pair
+        tree = write_prior_tree(d)
+        pm1 = lambda p: torch.from_numpy(images.imread(p).astype("float32") / 127.5 - 1.0).to(DEV)
+        tid = tree["bench"].pair_ids()[0][0]
+        share = dift_agreement(swapper, cpu_params, pm1(d / "targets" / f"{tid}.png"),
+                               pm1(d / "sources" / f"{tid}.png"))
+        print(f"  DIFT lattice cells (grid 128, one pair) whose source cell is the same with "
+              f"bf16 as with fp32 features: {100 * share:.2f}%", flush=True)
+        stats["dift_index_agreement_bf16_fp32"] = share
+        del swapper
+        torch.cuda.empty_cache()
+
+        # (f) the tiny fp32 guided swap, card against CPU
+        stats["tiny"] = guided_tiny_reference(paths)
+        torch.cuda.empty_cache()
+
+        # (g) cli.swap --guidance id,seg,exp, --precropped and raw, at
+        # DDIM-GUIDED_CLI_STEPS, each within one level of its direct call
+        flags = [*ckpt, "--seed", "5", "--ddim-steps", str(GUIDED_CLI_STEPS), "--guidance",
+                 ",".join(ALL_TERMS), "--bisenet-ckpt", str(paths["bisenet"]),
+                 "--d3dfr-ckpt", str(paths["d3dfr"])]
+        cfg10 = dataclasses.replace(cfg, ddim_steps=GUIDED_CLI_STEPS)
+        images.imwrite(d / "source.png", photo_like(91, cfg.image_size, cfg.image_size))
+        images.imwrite(d / "target.png", photo_like(92, cfg.image_size, cfg.image_size))
+        images.imwrite(d / "raw_source.png", photo_like(93, RAW_SIZE, RAW_SIZE))
+        images.imwrite(d / "raw_target.png", photo_like(94, RAW_SIZE, RAW_SIZE))
+        for mode, (src, tgt) in (("precropped", ("source.png", "target.png")),
+                                 ("raw", ("raw_source.png", "raw_target.png"))):
+            argv = ["--source", str(d / src), "--target", str(d / tgt), "--outdir",
+                    str(d / mode), *flags] + (["--precropped"] if mode == "precropped" else [])
+            args = cli_swap.build_parser().parse_args(argv)
+            sw = cli_common.build_swapper(args)
+            cli_swap.use_guidance(args, ALL_TERMS, sw)
+            if mode == "precropped":
+                src01 = cli_swap._read01(str(d / src))
+                ref = clip_normalize(torch.from_numpy(src01[None]).to(DEV).permute(0, 3, 1, 2))
+                t = cli_swap._read01(str(d / tgt), cfg.image_size)[None] * 2 - 1
+                mask = cli_common.default_inpaint_mask(cfg.image_size)[None]
+
+                def direct(g):
+                    out = sw.swap(target_image=t, inpaint_image=t * mask, inpaint_mask=mask,
+                                  ref_clip224=ref.permute(0, 2, 3, 1), generator=g)[0]
+                    return ((out.cpu() + 1) / 2).clamp(0, 1)
+            else:
+                pipe = cli_common.build_raw_pipeline(args, sw, RawPipelineConfig())
+
+                def direct(g):
+                    return pipe.swap_images(cli_swap._read01(str(d / tgt))[None],
+                                            cli_swap._read01(str(d / src))[None],
+                                            generator=g)[0].cpu().clamp(0, 1)
+            # twice: CUDA's backward of the resizes and pools sums with
+            # atomics, so two guided runs differ, and the guidance carries
+            # that through the chain
+            want, again = (direct(torch.Generator(device=DEV).manual_seed(5)) for _ in range(2))
+            spread = (want - again).abs().max().item()
+            del sw, direct
+            if mode == "raw":
+                del pipe
+            torch.cuda.empty_cache()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            got = {}
+            with recorded_launches(got):
+                done = cli_swap.main(argv)
+            launches = check_plan(f"cli.swap --guidance ({mode})", got,
+                                  guided_plan(cfg10, ALL_TERMS, 1))
+            peak = torch.cuda.max_memory_allocated()
+            img = torch.from_numpy(images.imread(done[0][0])).float() / 255
+            diff = (img - want).abs().max().item()
+            limit = LEVEL + 2 * spread
+            print(f"  cli.swap --guidance id,seg,exp ({mode}, DDIM-{GUIDED_CLI_STEPS}, batch 1): "
+                  f"{done[0][1]:.3f} s, peak {peak / 2**30:.2f} GiB, {tuple(img.shape)} within "
+                  f"{diff * 255:.3f} levels of the direct call (two direct calls differ by "
+                  f"{spread * 255:.3f}; limit one level plus twice that, {limit * 255:.3f}); "
+                  f"launches {launches} (as planned)", flush=True)
+            if diff > limit + 1e-6:
+                fail(f"cli.swap --guidance ({mode}) is {diff * 255:.3f} levels from the direct call")
+            stats[f"cli_{mode}"] = {"s": done[0][1], "peak_gib": peak / 2**30,
+                                    "levels_from_direct": diff * 255,
+                                    "levels_direct_twice": spread * 255, "launches": launches}
+
+        # (h) make-priors, both methods, on PRIOR_PAIRS pairs at 512 px
+        prior_flags = ["make-priors", "--target-dir", str(d / "targets"), "--source-dir",
+                       str(d / "sources"), "--mask-dir", str(d / "masks")]
+        k1_fwd = mode_plan(dataclasses.replace(cfg, cfg_scale=1.0), 1, batch=1)["K1"]
+        n = cfg.latent_size**2
+        feats_per_pair = 2 * 4  # two images, an ensemble of 4 forwards each
+        prior_plans = {
+            "tps": {k.__name__: {} for k in KERNELS},
+            "dift": {"self_attention_smalld": {k: feats_per_pair * PRIOR_PAIRS * c
+                                               for k, c in k1_fwd.items() if c},
+                     "wide_attention": {(1, n, n, cfg.vae.ch * cfg.vae.ch_mult[-1]):
+                                        2 * PRIOR_PAIRS},
+                     "group_norm_silu": {}, "flash_attention_fwd": {}, "flash_bwd_dkv": {},
+                     "flash_bwd_dq": {}}}
+        extra = {"tps": ["--landmark-ckpt", str(paths["landmarks"])], "dift": ckpt}
+        for method in ("tps", "dift"):
+            reset_counts()
+            got = {}
+            with recorded_launches(got):
+                done = cli_prepare.main([*prior_flags, "--out-dir", str(d / f"priors_{method}"),
+                                         "--method", method, *extra[method]])
+            launches = check_plan(f"make-priors --method {method}", got, prior_plans[method])
+            worst_out, worst_in = 0, 255
+            for (path, _), (tid, _) in zip(done, tree["bench"].pair_ids()):
+                prior = torch.from_numpy(images.imread(path)).int()
+                tgt = torch.from_numpy(images.imread(d / "targets" / f"{tid}.png")).int()
+                face = torch.from_numpy(images.imread(d / "masks" / f"{tid}.png", gray=True)) > 127
+                worst_out = max(worst_out, (prior - tgt).abs()[~face].max().item())
+                worst_in = min(worst_in, (prior - tgt).abs()[face].float().mean().item())
+            secs = [s for _, s in done]
+            print(f"  make-priors --method {method} ({PRIOR_PAIRS} pairs, 512 px): "
+                  f"{len(done)} files, seconds a pair {', '.join(f'{s:.3f}' for s in secs)}; "
+                  f"outside the mask within {worst_out} levels of the target (limit 1), inside "
+                  f"it {worst_in:.1f} levels from it on average; launches {launches} (as "
+                  f"planned)", flush=True)
+            if len(done) != PRIOR_PAIRS or worst_out > 1 or not worst_in > 1:
+                fail(f"make-priors --method {method}: its files do not hold the prior")
+            stats[f"priors_{method}"] = {"s_per_pair": secs, "launches": launches}
+
+        # (i) the test bench's prior start on the DIFT priors
+        tb = dataclasses.replace(tree["bench"], image_size=cfg.image_size,
+                                 prior_dir=str(d / "priors_dift"))
+        sw = cli_common.build_swapper(driver_args(*ckpt))
+        ds = TestBenchDataset(tb)
+        batch = collate([ds[i] for i in range(len(ds))])
+        direct = sw.swap(target_image=batch["target_image"], inpaint_image=batch["inpaint_image"],
+                         inpaint_mask=batch["inpaint_mask"], ref_clip224=batch["ref_clip224"],
+                         generator=torch.Generator(device=DEV).manual_seed(42),
+                         prior_image=batch["prior_image"])
+        direct = ((direct.cpu() + 1) / 2).clamp(0, 1)
+        del sw
+        torch.cuda.empty_cache()
+        reset_counts()
+        got = {}
+        with recorded_launches(got):
+            times, _ = cli_test_bench.main([*ckpt, "--dataset-dir", tb.dataset_dir, "--dataset",
+                                            "celeba", "--n-samples", str(PRIOR_BATCH),
+                                            "--num-pairs", str(PRIOR_PAIRS), "--prior-dir",
+                                            tb.prior_dir, "--outdir", str(d / "bench")])
+        launches = check_plan("inference_test_bench --prior-dir", got,
+                              guided_plan(cfg, (), PRIOR_BATCH, extra_k2=1))
+        outs = torch.stack([torch.from_numpy(images.imread(
+            d / "bench" / "results" / f"{sid}_{tid}.png")) for tid, sid in ds.pairs]).float() / 255
+        diff = (outs - direct).abs().max().item()
+        print(f"  cli.inference_test_bench --prior-dir (the DIFT priors) --n-samples "
+              f"{PRIOR_BATCH}: batch {times[0]:.3f} s; {len(outs)} PNGs within "
+              f"{diff * 255:.3f} levels of FaceSwapper.swap(prior_image=...) (limit 1); "
+              f"launches {launches} (as planned: K2 also encodes the prior)", flush=True)
+        if diff > LEVEL + 1e-6:
+            fail(f"the prior-start test bench is {diff * 255:.3f} levels from FaceSwapper.swap")
+        stats["prior_bench"] = {"batch_s": times[0], "levels_from_direct": diff * 255,
+                                "launches": launches}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # (j) K2r, K4 and K5 at the guided decode's shape against their plain
+    # versions, timed beside their bounds and sdpa
+    shape = (BATCH, cfg.latent_size**2, cfg.latent_size**2, cfg.vae.ch * cfg.vae.ch_mult[-1])
+    print(f"  K2r, K4 and K5 at the guided decode's shape (BH,N,M,D)={shape}", flush=True)
+    stats["kernels_worst"] = check_train_kernels(gen, [shape])
+    stats["kernels"] = {k: v[shape] for k, v in time_train_kernels(gen, [shape]).items()}
+    return stats
+
+
 # ------------------------------------------------------------------ phase 6
 
 def check_workspaces(workspaces, q, k, v, lse, do, di, scale):
@@ -3758,7 +4339,6 @@ def main():
           f"pairs and at {FFHQ_BATCH} on an FFHQ-style tree, cli.evaluate with CLIP-FID, ID "
           f"retrieval, pose and expression, the eval towers card vs CPU", flush=True)
     bench_stats = test_bench_path(cpu_params, smi)
-    del cpu_params
     k1_b10, k2_b10 = batch_shapes(cfg, BENCH_BATCH)
     print(f"  K1 and K2 at the batch-{BENCH_BATCH} shapes (per UNet forward / per swap) against "
           "their plain versions", flush=True)
@@ -3767,6 +4347,17 @@ def main():
     torch.cuda.empty_cache()
     bench_stats["wall_s"] = t12 = time.perf_counter() - t12
     print(f"  phase 12 took {t12:.1f} s of wall", flush=True)
+
+    t14 = time.perf_counter()
+    print(f"phase 14: the gradient-guided swap and the priors on phase 3's towers: "
+          f"swap_guided at batch {BATCH} (id; id, seg, exp), its step against einsum, the tiny "
+          f"fp32 guided swap card vs CPU, cli.swap --guidance, make-priors (tps, dift) and the "
+          f"prior-start test bench", flush=True)
+    guided_stats = guided_path(cpu_params, smi, gen)
+    del cpu_params
+    torch.cuda.empty_cache()
+    guided_stats["wall_s"] = t14 = time.perf_counter() - t14
+    print(f"  phase 14 took {t14:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -3947,6 +4538,25 @@ def main():
     for row, key in zip([rows[i] for i in (0, 1, 3, 4, 5)], ("K1", "K2", "K2r", "K4", "K5")):
         row["launches_train_cli"] = {run: st[key] for run, st in
                                      cli_stats["launches_train_cli"].items()}
+    # phase 14: each wrapper's launches in the guided requests, the guided
+    # drivers, make-priors and the prior-start test bench; K2r, K4 and K5 at
+    # the guided decode's batch-2 shape
+    guided_runs = {"swap_guided id": guided_stats["id"]["launches"],
+                   "swap_guided id,seg,exp": guided_stats["id_seg_exp"]["launches"],
+                   "cli.swap --guidance precropped": guided_stats["cli_precropped"]["launches"],
+                   "cli.swap --guidance raw": guided_stats["cli_raw"]["launches"],
+                   "make-priors dift": guided_stats["priors_dift"]["launches"],
+                   "test bench --prior-dir": guided_stats["prior_bench"]["launches"]}
+    for row, k in zip([rows[i] for i in (0, 1, 2, 6, 7, 8)], KERNELS):
+        row["launches_guided"] = {run: got[k.__name__] for run, got in guided_runs.items()}
+    for row, key in zip(rows[6:9], ("K2r", "K4", "K5")):
+        st, w = guided_stats["kernels"][key], guided_stats["kernels_worst"][key]
+        _, by = bound_ms(st["bytes"], st["ops"], "bf16", 0.0 if key == "K4" else st["exps"])
+        row["guided_batch2"] = {"shape": [BATCH, 4096, 4096, 512], "max_abs_err": w["bf16"],
+                                "rel_l2_err": w["rel"], "bound_by": by,
+                                **{k: st[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                                   if k in st},
+                                **{k: st[k] for k in ("library_device_ms", "alone_ms") if k in st}}
     rows[1]["batch4"] = {k: b4_k2[k] for k in (
         "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     steady = lat[1:] or lat
@@ -3973,11 +4583,15 @@ def main():
           f"{cli_stats['run_a']['steady_step_s']:.3f} s, loader wait "
           f"{100 * cli_stats['run_a']['loader_wait_share']:.2f}%, peak "
           f"{cli_stats['run_a']['peak_gib']:.2f} GiB, phase 13 {cli_stats['wall_s']:.1f} s; "
+          f"guided request (id, batch {BATCH}) {guided_stats['id']['timed_s']:.3f} s, peak "
+          f"{guided_stats['id']['peak_gib']:.2f} GiB, (id, seg, exp) "
+          f"{guided_stats['id_seg_exp']['s']:.3f} s, phase 14 {guided_stats['wall_s']:.1f} s; "
           f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
                       "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
                       "zero_tile": zero_tile, "drivers": driver_stats,
-                      "test_bench": bench_stats, "train_cli": cli_stats}), flush=True)
+                      "test_bench": bench_stats, "train_cli": cli_stats,
+                      "guided": guided_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -12,8 +12,11 @@ Functional parity targets:
     crops the test bench reads).
   - expand-sd-checkpoint: modify_checkpoints.py — zero-pad an SD-1.4
     conv_in from 4 to 9 input channels, REFace's starting point.
-  - make-priors takes the JAX package's flags and raises: its TPS and DIFT
-    priors wait for ROADMAP A13.
+  - make-priors: the reference's scripts/make_priors.py — prior images for
+    the test bench's start from the target (`inference_test_bench
+    --prior-dir`), by DIFT feature correspondence over the swap UNet or by a
+    68-landmark TPS warp (preprocess/priors.py), on the card unless
+    --device cpu.
 
 Images are read and written through io/images.py, not cv2.
 
@@ -21,6 +24,8 @@ Usage:
   python -m reface_tpu_torch.cli.prepare_data merge-celeba-masks --dataset-dir D
   python -m reface_tpu_torch.cli.prepare_data estimate-ffhq-masks --dataset-dir D \\
       --bisenet-ckpt 79999_iter.pth [--batch 8]
+  python -m reface_tpu_torch.cli.prepare_data make-priors --target-dir T \\
+      --source-dir S --mask-dir M --out-dir P --method dift --ckpt last.ckpt
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from reface_tpu_torch.data.synthetic import CELEBA_CLASS_SUFFIXES
 from reface_tpu_torch.io.images import imread, imwrite
+from reface_tpu_torch.ops.resize import resize_bilinear_aa
 
 
 def merge_celeba_masks(dataset_dir: str, count: int = 30000) -> None:
@@ -128,6 +134,120 @@ def crop_and_mask(dataset_dir: str, out_dir: str, start: int, count: int,
         print(f"[crop-and-mask] {min(i + batch, len(ids))}/{len(ids)}")
 
 
+def _swap_params(cfg, path: str) -> dict:
+    """The towers' state dicts from a REFace last.ckpt, a --save-params file
+    or a cli.train checkpoint directory (ckpt/io.py)."""
+    from reface_tpu_torch.ckpt import io as ckpt_io
+    from reface_tpu_torch.ckpt.from_torch import load_swap_params
+
+    if os.path.isdir(path):
+        return ckpt_io.load_params(path)
+    return load_swap_params(cfg, path)
+
+
+def make_priors(target_dir: str, source_dir: str, mask_dir: str, out_dir: str,
+                method: str = "tps", grid: int = 128, size: int = 512, tiny: bool = False,
+                ckpt: str | None = None, landmark_ckpt: str | None = None,
+                device=None) -> list:
+    """make_priors.py parity: prior images for the start from the target.
+
+    Pairs the i-th (sorted) target with the i-th source (the reference pairs
+    tar_start+i with src_start+i over pre-cropped dirs, make_priors.py:
+    33-52); the target's mask (white = face) has the target's basename in
+    mask_dir, or its stem with .png. method "dift": argmax-cosine
+    correspondence over the swap UNet's own features at t=261 (the
+    reference's DIFT mechanism) on a grid^2 lattice; "tps": a 68-landmark
+    TPS warp from LandmarkNet's points. The swap towers (dift) come from
+    --ckpt, else seeded at random; LandmarkNet (tps) from --landmark-ckpt (a
+    torch file of its state dict), else seeded. Each prior is written under
+    the target's basename. Returns [(output path, seconds)] per pair."""
+    import time
+
+    from reface_tpu_torch.io.images import resize_linear, resize_nearest
+    from reface_tpu_torch.pipelines.swap import (
+        FaceSwapper,
+        SwapConfig,
+        init_params,
+        resolve_device,
+        tiny_swap_config,
+    )
+    from reface_tpu_torch.preprocess.priors import (
+        dift_prior,
+        landmark_tps_prior,
+        make_unet_feats_fn,
+    )
+
+    def listing(d):
+        out = []
+        for ext in ("*.png", "*.jpg", "*.jpeg"):
+            out += glob.glob(os.path.join(d, ext))
+        return sorted(out)
+
+    targets, sources = listing(target_dir), listing(source_dir)
+    n = min(len(targets), len(sources))
+    if n == 0:
+        raise SystemExit("no image pairs found")
+    dev = resolve_device(device)
+
+    feats_fn = landmark_fn = None
+    if method == "dift":
+        cfg = tiny_swap_config(image_size=size) if tiny else SwapConfig(image_size=size)
+        swapper = FaceSwapper(cfg, _swap_params(cfg, ckpt) if ckpt else None, device=dev)
+        feats_fn = make_unet_feats_fn(swapper)
+    else:
+        from reface_tpu_torch.ckpt.from_torch import load_torch_state_dict
+        from reface_tpu_torch.nn.landmarks import LandmarkNet, LandmarkNetConfig
+
+        lm_cfg = LandmarkNetConfig() if not tiny else LandmarkNetConfig(
+            widths=(8, 16, 32, 32), input_size=64, dtype=torch.float32)
+        net = LandmarkNet(lm_cfg, device=dev)
+        if landmark_ckpt:
+            net.load_state_dict(load_torch_state_dict(landmark_ckpt))
+        else:
+            init_params(net, seed=1)
+        net.eval().requires_grad_(False)
+
+        @torch.inference_mode()
+        def landmark_fn(img01):
+            s = lm_cfg.input_size
+            x = resize_bilinear_aa(img01.permute(2, 0, 1)[None], s, s) * 2 - 1
+            return net(x).reshape(68, 2) * (img01.shape[0] / s)
+
+    os.makedirs(out_dir, exist_ok=True)
+    done = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        t_im, s_im = imread(targets[i]), imread(sources[i])
+        if t_im.shape[0] != size:
+            t_im = resize_linear(t_im, size, size)
+        if s_im.shape[0] != size:
+            s_im = resize_linear(s_im, size, size)
+        mp = os.path.join(mask_dir, os.path.basename(targets[i]))
+        mp = mp if os.path.exists(mp) else os.path.splitext(mp)[0] + ".png"
+        if not os.path.exists(mp):
+            raise SystemExit(f"mask not found for {targets[i]}")
+        m = imread(mp, gray=True)
+        if m.shape[0] != size:
+            m = resize_nearest(m, size, size)
+        on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        mask = on_dev((m > 127).astype(np.float32))[..., None]
+        tgt = on_dev(t_im.astype(np.float32) / 127.5 - 1.0)
+        src = on_dev(s_im.astype(np.float32) / 127.5 - 1.0)
+        if method == "dift":
+            prior = dift_prior(tgt, src, mask, feats_fn, grid=grid)
+        else:
+            t_lm = landmark_fn(on_dev(t_im.astype(np.float32) / 255.0))
+            s_lm = landmark_fn(on_dev(s_im.astype(np.float32) / 255.0))
+            prior = landmark_tps_prior(tgt, src, t_lm, s_lm, mask)
+        u8 = np.clip((prior.cpu().numpy() + 1) * 127.5, 0, 255).astype(np.uint8)
+        path = os.path.join(out_dir, os.path.basename(targets[i]))
+        imwrite(path, u8)
+        done.append((path, time.perf_counter() - t0))
+        if (i + 1) % 10 == 0 or i == n - 1:
+            print(f"[make-priors:{method}] {i + 1}/{n}")
+    return done
+
+
 def expand_sd_checkpoint(src: str, dst: str) -> None:
     """modify_checkpoints.py parity: 4->9 channel conv_in zero-pad."""
     from reface_tpu_torch.ckpt.from_torch import expand_conv_in, load_torch_state_dict
@@ -154,7 +274,7 @@ def build_parser() -> argparse.ArgumentParser:
     x = sub.add_parser("expand-sd-checkpoint")
     x.add_argument("--src", required=True)
     x.add_argument("--dst", required=True)
-    p = sub.add_parser("make-priors", help="not ported yet (ROADMAP A13)")
+    p = sub.add_parser("make-priors")
     p.add_argument("--target-dir", required=True)
     p.add_argument("--source-dir", required=True)
     p.add_argument("--mask-dir", required=True)
@@ -164,8 +284,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--ckpt", default=None,
-                   help="swap params (dift features / none = random)")
-    p.add_argument("--landmark-ckpt", default=None)
+                   help="swap params: a REFace last.ckpt, a --save-params file or a "
+                        "cli.train checkpoint dir (dift features; none = random)")
+    p.add_argument("--landmark-ckpt", default=None,
+                   help="torch file of a LandmarkNet state dict (tps; none = random)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
     c = sub.add_parser("crop-and-mask")
     c.add_argument("--dataset-dir", required=True)
@@ -191,9 +313,9 @@ def main(argv=None):
     elif args.cmd == "expand-sd-checkpoint":
         expand_sd_checkpoint(args.src, args.dst)
     elif args.cmd == "make-priors":
-        raise SystemExit("make-priors needs the TPS and DIFT priors "
-                         "(preprocess/priors.py, preprocess/tps.py), which are not "
-                         "ported yet (ROADMAP A13)")
+        return make_priors(args.target_dir, args.source_dir, args.mask_dir, args.out_dir,
+                           args.method, args.grid, args.size, args.tiny, args.ckpt,
+                           args.landmark_ckpt, device=device)
     elif args.cmd == "crop-and-mask":
         crop_and_mask(args.dataset_dir, args.out_dir, args.start, args.count,
                       args.allow_random, args.landmark_ckpt, args.bisenet_ckpt,

@@ -7,7 +7,11 @@ aligned, with a keep-mask from `--mask-dir` or a central ellipse. One
 torch.Generator on the swapper's device, seeded from --seed, draws every
 pair's noise in turn (the JAX package splits keys instead: the two draw
 different numbers). An output is named `<source stem>_<target name>`, so a
-.jpg target gives a .jpg output.
+.jpg target gives a .jpg output. `--guidance id,seg,exp` routes every swap
+of both modes through FaceSwapper.swap_guided (the gradient-guided sampler,
+ddim_guided.py:380-609 semantics) with fp32 BiSeNet at 256 px for "seg" and
+fp32 D3DFR at 224 px for "exp", read from --bisenet-ckpt and --d3dfr-ckpt
+(seeded random towers, with a warning, without them).
 
 Usage (on the card; --device cpu --tiny for a smoke run on the CPU):
   python -m reface_tpu_torch.cli.swap --ckpt last.ckpt --source a.jpg \
@@ -17,6 +21,7 @@ Usage (on the card; --device cpu --tiny for a smoke run on the CPU):
 from __future__ import annotations
 
 import argparse
+import functools
 import glob
 import os
 import time
@@ -53,10 +58,75 @@ def _out_name(sp, tp):
     return os.path.splitext(os.path.basename(sp))[0] + "_" + os.path.basename(tp)
 
 
-def main(argv=None):
-    """Run the driver; returns [(output path, seconds)] per pair, the
-    seconds from reading the pair's target to writing the output (each
-    source is read once, before its targets)."""
+def guidance_towers(args, terms, device):
+    """(seg_logits_fn, exp_coeff_fn) of the --guidance terms, None where a
+    term is off: fp32 BiSeNet on the image in [-1,1] brought to [0,1] and
+    256 px (SEG_MEAN/SEG_STD normalised; (B,19,256,256) logits), fp32 D3DFR
+    on the image in [0,1] at 224 px (coefficients 80:144). The towers are
+    frozen; without a checkpoint each is seeded at random, with a warning."""
+    from reface_tpu_torch.ckpt.from_torch import (
+        bisenet_state_dict,
+        facerecon_state_dict,
+        load_torch_state_dict,
+    )
+    from reface_tpu_torch.ops.resize import resize_bilinear_aa
+    from reface_tpu_torch.pipelines.swap import init_params
+
+    def tower(module, path, read, what, flag):
+        if path:
+            module.load_state_dict(read(load_torch_state_dict(path)))
+        else:
+            print(f"[swap] WARNING: --guidance {what} with random {module.__class__.__name__} "
+                  f"(no {flag})")
+            init_params(module, seed=0)
+        return module.eval().requires_grad_(False)
+
+    seg_fn = exp_fn = None
+    if "seg" in terms:
+        from reface_tpu_torch.nn.bisenet import SEG_MEAN, SEG_STD, BiSeNet, BiSeNetConfig
+
+        bise = tower(BiSeNet(BiSeNetConfig(dtype=torch.float32), device=device),
+                     args.bisenet_ckpt, bisenet_state_dict, "seg", "--bisenet-ckpt")
+        r = lambda a: torch.as_tensor(a, device=device).reshape(1, 3, 1, 1)
+        mean, std = r(SEG_MEAN), r(SEG_STD)
+
+        def seg_fn(img_pm1):
+            # 19-class logits at 256 px (ddim_guided.py:434-456)
+            x01 = resize_bilinear_aa((img_pm1 + 1.0) / 2.0, 256, 256)
+            return bise((x01 - mean) / std)
+
+    if "exp" in terms:
+        from reface_tpu_torch.eval.backbones import FaceReconCoeffNet
+
+        net = tower(FaceReconCoeffNet(device=device), args.d3dfr_ckpt, facerecon_state_dict,
+                    "exp", "--d3dfr-ckpt")
+
+        def exp_fn(img01):
+            return net(resize_bilinear_aa(img01, 224, 224))[:, 80:144]
+
+    return seg_fn, exp_fn
+
+
+def guidance_terms(spec: str) -> tuple:
+    """The --guidance list as a tuple of terms; an unknown term exits."""
+    terms = tuple(t.strip() for t in spec.split(",") if t.strip())
+    bad = set(terms) - {"id", "seg", "exp"}
+    if bad:
+        raise SystemExit(f"unknown --guidance terms: {sorted(bad)}")
+    return terms
+
+
+def use_guidance(args, terms, swapper) -> None:
+    """Route every swap of `swapper` (the precropped loop's and the raw
+    pipeline's) through swap_guided with the --guidance terms."""
+    seg_fn, exp_fn = guidance_towers(args, terms, swapper.device)
+    swapper.swap = functools.partial(
+        swapper.swap_guided, guidance=terms, guidance_scale=args.guidance_scale,
+        id_weight=args.id_guidance_weight, seg_weight=args.seg_guidance_weight,
+        exp_weight=args.exp_guidance_weight, seg_logits_fn=seg_fn, exp_coeff_fn=exp_fn)
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     add_model_args(ap)
     ap.add_argument("--target", required=True, help="image or folder")
@@ -79,25 +149,37 @@ def main(argv=None):
                     help="universal head swap: include hair/accessories")
     ap.add_argument("--guidance", default=None,
                     help="comma list of gradient-guidance terms: id,seg,exp "
-                         "(not ported yet: ROADMAP A13)")
+                         "(ddim_guided.py:380-609 semantics)")
     ap.add_argument("--guidance-scale", type=float, default=1.0)
     ap.add_argument("--id-guidance-weight", type=float, default=1.0)
-    ap.add_argument("--seg-guidance-weight", type=float, default=10.0)
-    ap.add_argument("--exp-guidance-weight", type=float, default=100.0)
+    ap.add_argument("--seg-guidance-weight", type=float, default=10.0,
+                    help="seg-L1 over classes 1,11,12,13 (ddim_guided:434-456)")
+    ap.add_argument("--exp-guidance-weight", type=float, default=100.0,
+                    help="3DMM expression cosine (ddim_guided:460-508)")
     ap.add_argument("--d3dfr-ckpt", default=None,
                     help="D3DFR coeff net for --guidance exp")
     ap.add_argument("--fused", action="store_true",
                     help="latency mode: RawSwapPipeline.swap_images_fused "
                          "(every landmark from LandmarkNet)")
-    args = ap.parse_args(argv)
-    if args.guidance:
-        raise NotImplementedError(
-            "--guidance: the gradient-guided swap is not ported yet (ROADMAP A13)")
+    return ap
+
+
+def main(argv=None):
+    """Run the driver; returns [(output path, seconds)] per pair, the
+    seconds from reading the pair's target to writing the output (each
+    source is read once, before its targets)."""
+    args = build_parser().parse_args(argv)
+    if args.guidance and args.fused:
+        raise SystemExit("--fused cannot be combined with --guidance: the "
+                         "gradient-guided sampler runs eager (per-stage) only")
+    terms = guidance_terms(args.guidance) if args.guidance else ()
 
     from reface_tpu_torch.pipelines.raw import RawPipelineConfig
     from reface_tpu_torch.pipelines.swap import clip_normalize
 
     swapper = build_swapper(args)
+    if terms:
+        use_guidance(args, terms, swapper)
     size = swapper.config.image_size
     dev = swapper.device
     generator = torch.Generator(device=dev).manual_seed(args.seed)

@@ -1,7 +1,7 @@
 """Host-side data of the port (port of reface_tpu/data): the CelebA-HQ and
 FFHQ training datasets with their augmentation, the synthetic trees, the
 frozen test bench and the prefetching loader. The landmark faces of
-synthetic.py wait for the landmark trainer (ROADMAP A13), the video reader
+synthetic.py wait for the landmark trainer (ROADMAP A13b), the video reader
 for the video path (ROADMAP A9c)."""
 
 from reface_tpu_torch.data.celeba import CelebAHQConfig, CelebAHQDataset

@@ -1,6 +1,6 @@
 """Synthetic mini dataset trees for tests and smoke runs, written through
 io/images.py (port of reface_tpu/data/synthetic.py's CelebA-HQ and FFHQ
-trees; its landmark faces wait for the landmark trainer, ROADMAP A13).
+trees; its landmark faces wait for the landmark trainer, ROADMAP A13b).
 
 Each item is a uniform-noise image with a 19-class mask of plausible
 regions (skin disc, eyes, mouth, hair), drawn from one

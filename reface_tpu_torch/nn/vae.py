@@ -4,9 +4,11 @@ Module names are the reference torch checkpoint's (ldm model.py), e.g.
 `encoder.down.0.block.0.conv1.weight`, so `first_stage_model.*` of a REFace
 `last.ckpt` loads as it is. The mid-block AttnBlock (one head, d=512, over
 4096 tokens at 512 px) runs kernel K2 on the card through the attention
-dispatch; with VAEConfig.remat (training through the decoder) the decoder's
-runs the differentiable FlashAttention instead (the residual K2 forward,
-K4/K5 in the backward). The 0.18215 latent scale is applied by the caller.
+dispatch; with VAEConfig.remat (training through the decoder), or for one
+call with `decode(z, for_grad=True)` (the guided sampler's gradient through
+a serving VAE), the decoder's runs the differentiable FlashAttention instead
+(the residual K2 forward, K4/K5 in the backward) and its blocks are
+rematerialised. The 0.18215 latent scale is applied by the caller.
 VAEConfig.quant "int8" or "int8conv" (the same here: the VAE has no dense
 site) runs the ResnetBlocks' conv1, conv2 and nin_shortcut int8
 (ops/quant.py); the mid-block attention, stem, head and up/downsampling
@@ -76,9 +78,9 @@ class AttnBlock(nn.Module):
 
     attn_impl: "auto" (K2 on the card, no backward) or "flash" (the
     differentiable FlashAttention), ops/attention.py's routing. It is fixed
-    when the block is built and never read from the autograd state, so a
-    checkpointed caller launches the same kernel in its first pass and in
-    its recomputation."""
+    when the block is built, or given by the caller for one call (`impl`),
+    and never read from the autograd state, so a checkpointed caller
+    launches the same kernel in its first pass and in its recomputation."""
 
     def __init__(self, channels: int, dtype=torch.float32, device=None,
                  attn_impl: str = "auto"):
@@ -91,13 +93,13 @@ class AttnBlock(nn.Module):
         self.v = Conv2d(channels, channels, 1, **kw)
         self.proj_out = Conv2d(channels, channels, 1, **kw)
 
-    def forward(self, x):
+    def forward(self, x, impl: str | None = None):
         b, c, hh, ww = x.shape
         h = self.norm(x)
         tokens = lambda t: t.reshape(b, c, hh * ww).transpose(1, 2)
         o = multi_head_attention(tokens(self.q(h)), tokens(self.k(h)),
                                  tokens(self.v(h)), num_heads=1,
-                                 impl=self.attn_impl)
+                                 impl=impl or self.attn_impl)
         return x + self.proj_out(o.transpose(1, 2).reshape(b, c, hh, ww))
 
 
@@ -121,8 +123,8 @@ def _mid(ch, kw, quant: str, attn_impl: str = "auto"):
     return mid
 
 
-def _run_mid(mid, h, call=lambda layer, x: layer(x)):
-    return call(mid.block_2, mid.attn_1(call(mid.block_1, h)))
+def _run_mid(mid, h, call=lambda layer, x: layer(x), impl: str | None = None):
+    return call(mid.block_2, mid.attn_1(call(mid.block_1, h), impl))
 
 
 class Encoder(nn.Module):
@@ -183,13 +185,17 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm32(block_in, eps=1e-6, device=device)
         self.conv_out = Conv2d(block_in, cfg.out_ch, 3, padding=1, **kw)
 
-    def forward(self, z):
-        # per-block remat, while gradients are recorded (as nn/unet.py)
-        remat = self.config.remat and torch.is_grad_enabled()
+    def forward(self, z, for_grad: bool = False):
+        """for_grad: built for a backward through this call, as with
+        VAEConfig.remat: FlashAttention where the block would run K2, and
+        per-block remat while gradients are recorded (as nn/unet.py)."""
+        grad_route = self.config.remat or for_grad
+        remat = grad_route and torch.is_grad_enabled()
         call = (lambda layer, x: checkpoint(layer, x, use_reentrant=False)) \
             if remat else (lambda layer, x: layer(x))
+        impl = "flash" if grad_route and self.mid.attn_1.attn_impl == "auto" else None
         h = self.conv_in(z.to(self.config.dtype))
-        h = _run_mid(self.mid, h, call)
+        h = _run_mid(self.mid, h, call, impl)
         for level in reversed(self.up):
             for blk in level.block:
                 h = call(blk, h)
@@ -217,5 +223,5 @@ class AutoencoderKL(nn.Module):
         moments = self.quant_conv(self.encoder(x)).float()
         return DiagonalGaussian.from_moments(moments, dim=1)
 
-    def decode(self, z):
-        return self.decoder(self.post_quant_conv(z))
+    def decode(self, z, for_grad: bool = False):
+        return self.decoder(self.post_quant_conv(z), for_grad)

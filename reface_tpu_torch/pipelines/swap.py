@@ -7,7 +7,9 @@ unconditional half first, exact prefix dedup, by default; or PLMS, or
 DPM-Solver++(2M)), VAE decode and clamp. vae_tile / unet_tile run the VAE
 and the UNet on overlapping tiles, all tiles in one batched call
 (parallel/tiling.py); the quant fields of the towers' configs select the
-int8 serving modes (ops/quant.py).
+int8 serving modes (ops/quant.py). `FaceSwapper.swap_guided` runs the
+gradient-guided sampler (diffusion/ddim_guided.py) with the ID, segmentation
+and expression terms of diffusion/guidance.py.
 
 The public `FaceSwapper.swap` keeps the JAX package's layout at its
 boundary: NHWC (B,512,512,3) images in [-1,1] in and out. Inside, the port
@@ -18,6 +20,7 @@ drops to the CPU by itself.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -26,12 +29,20 @@ from reface_tpu_torch.core.schedules import DDIMTables, DiffusionSchedule
 from reface_tpu_torch.diffusion.ddim import ddim_sample
 from reface_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
 from reface_tpu_torch.diffusion.plms import plms_sample
-from reface_tpu_torch.nn.arcface import CLIP_MEAN, CLIP_STD, ArcFaceConfig, BatchNormInference, PReLU
+from reface_tpu_torch.nn.arcface import (
+    ARC_FACE_CROP,
+    CLIP_MEAN,
+    CLIP_STD,
+    ArcFaceConfig,
+    BatchNormInference,
+    PReLU,
+)
 from reface_tpu_torch.nn.clip import CLIPVisionConfig
 from reface_tpu_torch.nn.conditioner import ConditionerConfig, REFaceConditioner
 from reface_tpu_torch.nn.layers import Conv2d, GroupNorm32, LayerNorm, Linear
 from reface_tpu_torch.nn.unet import UNetConfig, UNetModel
 from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL, VAEConfig
+from reface_tpu_torch.ops.pooling import adaptive_avg_pool2d
 from reface_tpu_torch.ops.resize import resize_bilinear_aa, resize_bilinear_no_aa
 from reface_tpu_torch.parallel.tiling import tiled_apply
 
@@ -182,12 +193,14 @@ class SwapModules:
                                out_channels=4, scale=1.0 / f)
         return enc(image)
 
-    def decode_latent(self, z):
-        """Scaled latent -> image clamped to [-1,1]; tiled above vae_tile."""
+    def decode_latent(self, z, for_grad: bool = False):
+        """Scaled latent -> image clamped to [-1,1]; tiled above vae_tile.
+        for_grad: the decoder built for a backward through this call
+        (AutoencoderKL.decode), as the guided sampler differentiates it."""
         cfg = self.config
 
         def dec(zz):
-            return torch.clamp(self.vae.decode(zz / SD_SCALE_FACTOR), -1.0, 1.0)
+            return torch.clamp(self.vae.decode(zz / SD_SCALE_FACTOR, for_grad), -1.0, 1.0)
 
         if cfg.vae_tile and z.shape[2] > cfg.vae_tile:
             stride = cfg.vae_tile_stride or cfg.vae_tile // 2
@@ -200,6 +213,15 @@ class SwapModules:
         tar224 = clip_normalize(un_norm(target_image))
         c = self.conditioner(ref_clip224, tar224, landmarks)
         return c, self.conditioner.null_conditioning(c.shape[0])
+
+    def embed_id(self, img_pm1):
+        """(B,3,S,S) image in [-1,1] -> (B,512) ArcFace features by the
+        IDLoss protocol (ddpm.py:112-124): pool to 256, ARC_FACE_CROP, pool
+        to 112, the conditioner's IR-SE-50."""
+        x = adaptive_avg_pool2d(img_pm1, 256, 256)
+        top, bottom, left, right = ARC_FACE_CROP
+        x = adaptive_avg_pool2d(x[:, :, top:bottom, left:right], 112, 112)
+        return self.conditioner.face_ID_model.facenet(x)
 
     def unet_eps(self, x9, t, context):
         """eps of the UNet; above unet_tile latent pixels on overlapping
@@ -302,9 +324,88 @@ class FaceSwapper(SwapModules):
                             cfg_steps=cfg.cfg_steps or None, dedup_model_fn=dedup)
         return self.decode_latent(z).permute(0, 2, 3, 1).contiguous()
 
-    def swap_guided(self, *args, **kwargs):
-        raise NotImplementedError(
-            "gradient-guided swap is not ported yet (ROADMAP A13)")
+    def swap_guided(self, target_image, inpaint_image, inpaint_mask, ref_clip224,
+                    landmarks=None, generator: torch.Generator | None = None, x_T=None,
+                    guidance: tuple = ("id",), guidance_scale: float = 1.0,
+                    id_weight: float = 1.0, seg_weight: float = 10.0,
+                    exp_weight: float = 100.0, seg_logits_fn=None, exp_coeff_fn=None):
+        """Gradient-guided swap (ddim_guided.py:380-609 semantics); returns
+        (B,S,S,3) fp32 images in [-1,1]. `swap`'s arguments, plus:
+
+        guidance: a subset of ("id", "seg", "exp"). "id" uses the swapper's
+        own ArcFace by the IDLoss protocol (embed_id) against the source
+        taken back from ref_clip224; "seg" needs seg_logits_fn ((B,3,H,W) in
+        [-1,1] -> (B,19,H,W) BiSeNet logits), "exp" exp_coeff_fn ((B,3,H,W)
+        in [0,1] -> (B,64) D3DFR expression coefficients), which the driver
+        builds from its towers (cli/swap.py). The ID and expression terms
+        read the decode in the inpaint region 1 - inpaint_mask.
+
+        Runs outside inference mode whatever the caller's (the raw pipeline
+        calls it from inside): its inputs are copied out of it, the UNet and
+        the encodes run under no_grad, and each step's decode is built for
+        the backward (SwapModules.decode_latent(for_grad=True)).
+        """
+        with torch.inference_mode(False), torch.no_grad():
+            return self._swap_guided(
+                target_image, inpaint_image, inpaint_mask, ref_clip224, landmarks,
+                generator, x_T, tuple(guidance), guidance_scale, id_weight, seg_weight,
+                exp_weight, seg_logits_fn, exp_coeff_fn)
+
+    def _swap_guided(self, target_image, inpaint_image, inpaint_mask, ref_clip224,
+                     landmarks, generator, x_T, guidance, guidance_scale, id_weight,
+                     seg_weight, exp_weight, seg_logits_fn, exp_coeff_fn):
+        from reface_tpu_torch.diffusion.ddim_guided import guided_ddim_sample
+        from reface_tpu_torch.diffusion.guidance import (
+            combine_guidance,
+            make_expression_guidance,
+            make_id_guidance,
+            make_seg_guidance,
+        )
+
+        bad = set(guidance) - {"id", "seg", "exp"}
+        if bad:
+            raise ValueError(f"unknown guidance terms: {sorted(bad)}")
+        if "seg" in guidance and seg_logits_fn is None:
+            raise ValueError('guidance "seg" needs seg_logits_fn')
+        if "exp" in guidance and exp_coeff_fn is None:
+            raise ValueError('guidance "exp" needs exp_coeff_fn')
+        cfg, dev = self.config, self.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        # copies made here are ordinary tensors, which autograd may save
+        own = lambda a: _nchw(a, dev).clone()
+        target, ref, mask = own(target_image), own(ref_clip224), own(inpaint_mask)
+        c, uc = self.build_context(ref, target, None if landmarks is None
+                                   else torch.as_tensor(landmarks, device=dev).clone())
+        z_inpaint = self.encode_latent(
+            own(inpaint_image), generator if cfg.sample_posterior else None)
+        b, hw = target.shape[0], cfg.latent_size
+        mask_latent = resize_bilinear_no_aa(mask, hw, hw)
+        if x_T is not None:
+            x_T = own(x_T)
+        else:
+            x_T = torch.randn((b, 4, hw, hw), generator=generator, device=dev)
+
+        decode_fn = functools.partial(self.decode_latent, for_grad=True)
+        inpaint_region = 1.0 - mask  # 1 = the generated region
+        fns = []
+        if "id" in guidance:
+            r = lambda a: torch.as_tensor(a, device=dev).reshape(1, 3, 1, 1)
+            src_pm1 = (ref * r(CLIP_STD) + r(CLIP_MEAN)) * 2.0 - 1.0
+            fns.append(make_id_guidance(decode_fn, self.embed_id, src_pm1,
+                                        inpaint_region=inpaint_region, weight=id_weight))
+        if "seg" in guidance:
+            fns.append(make_seg_guidance(decode_fn, seg_logits_fn, target, weight=seg_weight))
+        if "exp" in guidance:
+            fns.append(make_expression_guidance(decode_fn, exp_coeff_fn, target,
+                                                inpaint_region=inpaint_region,
+                                                weight=exp_weight))
+        dedup = (self.unet_eps_cfg_dedup if cfg.cfg_dedup and not cfg.unet_tile
+                 else None)
+        z = guided_ddim_sample(self.unet_eps, combine_guidance(*fns), x_T, c, uc, z_inpaint,
+                               mask_latent, self.tables, cfg_scale=cfg.cfg_scale,
+                               guidance_scale=guidance_scale, dedup_model_fn=dedup)
+        return self.decode_latent(z).permute(0, 2, 3, 1).contiguous()
 
 
 def tiny_swap_config(image_size: int = 64, ddim_steps: int = 4) -> SwapConfig:

@@ -50,12 +50,10 @@ from reface_tpu_torch.diffusion.losses import (
     recon_tower_losses,
     reface_losses,
 )
-from reface_tpu_torch.nn.arcface import ARC_FACE_CROP
 from reface_tpu_torch.nn.landmarks import LandmarkAuxHead
 from reface_tpu_torch.nn.lpips import LPIPS
 from reface_tpu_torch.nn.unet import decoder_feature_shapes
 from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR
-from reface_tpu_torch.ops.pooling import adaptive_avg_pool2d
 from reface_tpu_torch.ops.resize import resize_bilinear_no_aa
 from reface_tpu_torch.pipelines.swap import (
     SwapConfig,
@@ -398,19 +396,12 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
                                     _nchw(draws["eps_inpaint"], dev))
         mask = resize_bilinear_no_aa(_nchw(batch["inpaint_mask"], dev), hw, hw)
 
-        def embed_id_fn(img_pm1):
-            # the reference's IDLoss.extract_feats: pool to 256, crop, pool to 112
-            x = adaptive_avg_pool2d(img_pm1, 256, 256)
-            tcrop, bcrop, lcrop, rcrop = ARC_FACE_CROP
-            x = adaptive_avg_pool2d(x[:, :, tcrop:bcrop, lcrop:rcrop], 112, 112)
-            return modules.conditioner.face_ID_model.facenet(x)
-
         head = modules.landmark_head
         with_head = want_lm_head and head is not None
         return dict(
             unet_fn=modules.unet,
             decode_fn=modules.decode_latent,
-            embed_id_fn=embed_id_fn,
+            embed_id_fn=modules.embed_id,  # the reference's IDLoss.extract_feats
             lpips_fn=modules.lpips if use_lpips else None,
             conditioning_fn=lambda r, l: modules.conditioner(r, tar224, l),
             unet_features_fn=(lambda x9, tt, cc: modules.unet(

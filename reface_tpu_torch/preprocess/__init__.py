@@ -1,5 +1,5 @@
 """The raw-image path's preprocessing (port of reface_tpu/preprocess):
 alignment and paste-back warps, face boxes from parsing masks, and the
 segmentation vocabularies. The training datasets' TPS mask warp is
-data/augment.py's; preprocess/tps.py's jnp TPS feeds the priors, which wait
-for ROADMAP A13."""
+data/augment.py's (on the host); tps.py's device TPS feeds the priors of
+priors.py (cli.prepare_data make-priors)."""

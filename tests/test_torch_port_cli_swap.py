@@ -81,7 +81,8 @@ def test_precropped_matches_the_jax_driver(files, monkeypatch):
 def test_raw_mode_writes_the_pipelines_output(files):
     """The raw mode without --precropped: the file equals
     RawSwapPipeline.swap_images on the same images, weights and seed, within
-    one level; --guidance raises and names ROADMAP A13."""
+    one level; --guidance with --fused is refused, as by the JAX driver
+    (tests/test_torch_port_cli_guided.py runs --guidance)."""
     import argparse
 
     from reface_tpu_torch.cli import swap as pswap
@@ -106,6 +107,6 @@ def test_raw_mode_writes_the_pipelines_output(files):
                             generator=gen)[0].numpy()
     assert got.shape == (80, 80, 3)
     assert np.abs(got - want * 255).max() <= 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(SystemExit, match="--fused cannot be combined with --guidance"):
         pswap.main(["--source", "a", "--target", "b", "--outdir", "o", "--guidance", "id",
-                    *argv])
+                    "--fused", *argv])

@@ -110,7 +110,9 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.cli.inference_test_bench, reface_tpu_torch.cli.train, "
         "reface_tpu_torch.cli.prepare_data, reface_tpu_torch.data.celeba, "
         "reface_tpu_torch.data.ffhq, reface_tpu_torch.data.synthetic, "
-        "reface_tpu_torch.ckpt.io, reface_tpu_torch.core.profiling\n"
+        "reface_tpu_torch.ckpt.io, reface_tpu_torch.core.profiling, "
+        "reface_tpu_torch.diffusion.guidance, reface_tpu_torch.diffusion.ddim_guided, "
+        "reface_tpu_torch.preprocess.tps, reface_tpu_torch.preprocess.priors\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"

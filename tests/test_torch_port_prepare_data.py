@@ -13,7 +13,9 @@ against the JAX package's reface_tpu/cli/prepare_data.py, on the CPU.
   count of such pixels.
 - crop-and-mask: the crops and seg12 masks equal to the port's
   RawSwapPipeline called directly on the same seeded weights.
-- make-priors: its flags parse, and it raises naming ROADMAP A13.
+- make-priors: its flags parse, and directories without an image pair are
+  refused as the JAX driver refuses them (tests/test_torch_port_cli_guided.py
+  runs make-priors).
 """
 
 import os
@@ -126,6 +128,10 @@ def test_crop_and_mask_matches_raw_pipeline(tmp_path):
 
 
 def test_make_priors_waits_for_a13(tmp_path):
-    with pytest.raises(SystemExit, match="A13"):
-        PP.main(["make-priors", "--target-dir", str(tmp_path), "--source-dir", str(tmp_path),
-                 "--mask-dir", str(tmp_path), "--out-dir", str(tmp_path), "--method", "dift"])
+    """make-priors ran no prior before the priors were ported (ROADMAP A13);
+    now, as in the JAX driver, only directories without a pair exit."""
+    argv = ["make-priors", "--target-dir", str(tmp_path), "--source-dir", str(tmp_path),
+            "--mask-dir", str(tmp_path), "--out-dir", str(tmp_path), "--method", "dift"]
+    for main in (JP.main, PP.main):
+        with pytest.raises(SystemExit, match="no image pairs found"):
+            main(argv)
