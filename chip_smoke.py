@@ -181,6 +181,35 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      cli.inference_test_bench --prior-dir on the DIFT priors within one
      level of FaceSwapper.swap(prior_image=...), K2 encoding the prior too;
      K2r, K4 and K5 at (2,4096,4096,512) against their plain versions,
+     timed beside their bounds and sdpa. The files are deleted at the end;
+  15. (run after phase 14) the remaining trainers on phase 3's towers:
+     cli.distill at SwapConfig() widths, 512 px, batch 4, round 0 of 50 ->
+     10 (a 5-step teacher window under CFG 3, the teacher in bf16) from a
+     --teacher-ckpt params file of the towers, on a CelebA-style tree of 8
+     items, 3 steps: losses finite, every student tensor with a gradient
+     moved (the 64 a one-token context leaves without one did not), the
+     teacher and the frozen towers bit-identical, each step's launches by
+     wrapper and shape against distill_step_plan, manifest.json; the
+     teacher window's end, and one step's loss and student gradient with the
+     student's attention, against einsum (phase 7's limits) and the
+     teacher window's share of a step by CUDA events; cli.swap
+     --precropped --ckpt <out>/params.pt --ddim-steps 10 --scale 1.0 within
+     one level of FaceSwapper.swap on the same weights; two tiny fp32
+     rounds (50 -> [25, 5]) on the card against the CPU port.
+     cli.train_vae at VAEConfig() widths, 256 px, batch 4, from phase 3's
+     VAE in a REFace-layout file and a seeded LPIPS file, on 8 images (one
+     .JPG), with the gate open (3 steps) and closed (2): losses and d_weight
+     finite, d_weight 0 with the gate closed, the trees moved (the
+     discriminator only with the gate open), each step's launches by shape
+     (K2 once, K2r 3, K4 2, K5 2 at (4,1024,1024,512); no K2 under
+     autograd); one generator step against einsum; a tiny fp32 step on the
+     card against the CPU port (held to 3x the CPU port's own spread
+     between one thread and all). cli.train_landmarks at
+     LandmarkNetConfig(), 256 px, on 192 faces make_landmark_faces drew,
+     300 steps: the L1 falls, the held-out error under the mean shape's,
+     the file read back by build_raw_pipeline's --landmark-ckpt. K2 at
+     (4,1024,1024,512), K2r, K4 and K5 there and at the teacher's
+     (64,4096,4096,40) and (64,1024,1024,80) against their plain versions,
      timed beside their bounds and sdpa. The files are deleted at the end.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
@@ -210,6 +239,7 @@ from reface_tpu_torch.ckpt import io as ckpt_io
 from reface_tpu_torch.ckpt.from_torch import UNET_PREFIX, VAE_PREFIX, save_swap_params
 from reface_tpu_torch.cli import common as cli_common
 from reface_tpu_torch.cli import demo_server
+from reface_tpu_torch.cli import distill as cli_distill
 from reface_tpu_torch.cli import evaluate as cli_evaluate
 from reface_tpu_torch.cli import inference_test_bench as cli_test_bench
 from reface_tpu_torch.cli import prepare_data as cli_prepare
@@ -237,7 +267,7 @@ from reface_tpu_torch.nn.landmarks import LandmarkNet, LandmarkNetConfig
 from reface_tpu_torch.nn.lpips import LPIPS
 from reface_tpu_torch.nn.safety import SafetyChecker, SafetyCheckerConfig
 from reface_tpu_torch.nn.unet import UNetModel
-from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL
+from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL, VAEConfig
 from reface_tpu_torch.nn.layers import CrossAttention, FeedForwardGEGLU
 from reface_tpu_torch.ops import attention as PA
 from reface_tpu_torch.ops import kernels
@@ -4218,6 +4248,629 @@ def train_cli_path(smi: str, gen) -> dict:
     return stats
 
 
+# ------------------------------------------------------------------ phase 15
+
+# Phase 15: the remaining trainers. cli.distill at SwapConfig() widths, 512
+# px, batch 4, round 0 of 50 -> 10 (windows of 5 teacher steps under CFG 3);
+# cli.train_vae at VAEConfig() widths, 256 px, batch 4; cli.train_landmarks
+# at LandmarkNetConfig(), 256 px.
+DISTILL_BATCH, DISTILL_STEPS, DISTILL_ITEMS, DISTILL_K = 4, 3, 8, 5
+VAE_SIZE, VAE_BATCH, VAE_IMAGES = 256, 4, 8
+VAE_WIDE = (VAE_BATCH, (VAE_SIZE // 8) ** 2, (VAE_SIZE // 8) ** 2, 512)
+LM_SIZE, LM_FACES, LM_STEPS, LM_BATCH = 256, 192, 300, 32
+# The shapes the trainers add: the teacher's self-attention at batch 8 (CFG
+# doubling of 4: 16 x 8 heads), the VAE's mid-block at 256 px.
+TEACHER_SHAPES = ((16 * DISTILL_BATCH, 4096, 4096, 40), (16 * DISTILL_BATCH, 1024, 1024, 80))
+# Phase 15, the tiny fp32 runs on the card against the CPU port: the losses
+# (the distillation's passes through 2 and 5 teacher steps) as phase 7's
+# tiny step (1e-5 relative), and the student after two Adam steps at lr 1e-5
+# within 1e-4 relative L2 (an element whose gradient rounds to the other
+# sign on the other side moves by 2e-5 there).
+TRAINER_TINY_TOL = {"loss": 1e-5, "weights": 1e-4, "grad": 1e-4}
+# Phase 15, a distillation step with flash attention against einsum (bf16):
+# the student's gradient at phase 7's limit (seen 2.4e-3 to 2.6e-3); the
+# teacher window's end at the same 1e-2 (seen 4.2e-3); the loss at 1e-3. It
+# was first held to phase 7's 2e-4 and read 1.29e-4, 2.80e-4 (both towers
+# switched) and 2.61e-4 (the student alone) on the H100 (80GB HBM3, 700 W):
+# the loss is the weighted MSE of the student's eps against a target close
+# to it, so a relative change of eps moves it by about twice that change
+# over the residual's relative size, where phase 7's MSE against the noise
+# does not amplify it (seen 2.3e-5 there).
+DISTILL_TOL = {"loss": 1e-3, "grad": 1e-2, "window": 1e-2}
+# The tiny VAE step's gradients: first held card vs CPU to 1e-4 (phase 7's
+# limit), they read 9.06e-4 at the encoder's conv_in (gate open) on the
+# H100 (80GB HBM3, 700 W), twice. Against a float64 run of the same step, the CPU port's fp32
+# gradient reads 1.09e-3 at that tensor on one host (this repository's CPU
+# test machine) and 2.50e-4 at worst on the card's host, and the card's
+# 9.31e-4: fp32 rounding alone moves the first layers' gradients, which come
+# back through the L1 term's signs summed over every pixel, by up to ~1e-3,
+# the amount depending on the CPU's summation order. So the card is held to
+# the float64 run within the larger of VAE_TINY_FP64 times the CPU port's
+# fp32 distance in the same run and VAE_TINY_ABS (~2x the largest fp32
+# distance read on a CPU). The limits were set after those readings.
+VAE_TINY_FP64 = 2.0
+VAE_TINY_ABS = 2e-3
+
+
+def distill_step_plan(batch: int, k: int) -> dict:
+    """Launches of one distillation step of round 0 (CFG folding): the two
+    VAE encodes through K2; the teacher window's k UNet forwards at the CFG
+    batch 2B without gradients (the flash forward, once each); the student's
+    forward under remat (twice) and its backward."""
+    teacher = {(16 * batch, 4096, 4096, 40): 5 * k, (16 * batch, 1024, 1024, 80): 5 * k}
+    student = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
+    return {"self_attention_smalld": {}, "wide_attention": {(batch, 4096, 4096, 512): 2},
+            "group_norm_silu": {},
+            "flash_attention_fwd": {**teacher, **{s: 2 * c for s, c in student.items()}},
+            "flash_bwd_dkv": student, "flash_bwd_dq": student}
+
+
+def vae_step_plan() -> dict:
+    """Launches of one VAE trainer step: the generator pass's encode and
+    decode through FlashAttention (forward once each, the decoder's attention
+    outside its remat), their backward; the discriminator pass's encode
+    through K2 and its decode's flash forward. No K2 under autograd."""
+    return {"self_attention_smalld": {}, "wide_attention": {VAE_WIDE: 1},
+            "group_norm_silu": {}, "flash_attention_fwd": {VAE_WIDE: 3},
+            "flash_bwd_dkv": {VAE_WIDE: 2}, "flash_bwd_dq": {VAE_WIDE: 2}}
+
+
+def unused_cross_attention(name: str) -> bool:
+    """The UNet tensors a one-token context leaves without a gradient: the
+    cross-attention's query and key projections (its single key gets all the
+    weight) and the norm before them."""
+    return any(f".{k}." in name for k in ("attn2.to_q", "attn2.to_k", "norm2"))
+
+
+def distill_tiny_reference(d: Path) -> dict:
+    """cli.distill --tiny at 256 px, fp32, two rounds (50 -> [25, 5]), one
+    step each, on the card and on the CPU port, from one --teacher-ckpt of
+    seeded tiny towers (their zero-initialised layers re-randomised) and the
+    same draws made on the host: the losses and the final student."""
+    import reface_tpu_torch.diffusion.distill as PD
+
+    teacher = FaceSwapper(tiny_swap_config(image_size=256), device="cpu")
+    for i, m in enumerate(teacher.towers().values()):
+        init_params(m, seed=40 + i, dezero=True)  # an output that depends on every layer
+    save_swap_params(d / "tiny_teacher.pt", {n: m.state_dict()
+                                             for n, m in teacher.towers().items()})
+    del teacher
+    orig = PD.make_distill_draws
+    out = {}
+    for dev in (DEV, "cpu"):
+        g = torch.Generator().manual_seed(4)
+        PD.make_distill_draws = lambda b, lat, cfg, device, generator=None: {
+            k: v.to(device) for k, v in orig(b, lat, cfg, "cpu", g).items()}
+        try:
+            res, _ = run_driver(cli_distill.main, [
+                "--out", str(d / f"tiny_{dev}"), "--tiny", "--device", dev, "--image-size",
+                "256", "--batch-size", "2", "--target-steps", "5", "--steps-per-round", "1",
+                "--log-every", "1", "--teacher-ckpt", str(d / "tiny_teacher.pt")])
+        finally:
+            PD.make_distill_draws = orig
+        out[dev] = ([h["loss"] for h in res["history"]],
+                    {k: v.float().cpu() for k, v in res["modules"].unet.state_dict().items()})
+        del res
+    (lc, wc), (lp, wp) = out[DEV], out["cpu"]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    rel_w = rel_l2(wc, wp)
+    print(f"  tiny 256 px cli.distill, two rounds (50 -> [25, 5]) of one step, card vs CPU "
+          f"(fp32): losses {lc} vs {lp}, rel {rel_loss:.3e} (tol {TRAINER_TINY_TOL['loss']:.0e}); "
+          f"the student's weights rel L2 {rel_w:.3e} (tol {TRAINER_TINY_TOL['weights']:.0e})",
+          flush=True)
+    if len(lc) != 2 or not (rel_loss <= TRAINER_TINY_TOL["loss"]
+                            and rel_w <= TRAINER_TINY_TOL["weights"]):
+        fail("the card's tiny distillation disagrees with the CPU port")
+    return {"loss_rel": rel_loss, "weights_rel_l2": rel_w}
+
+
+def distill_path(cpu_params: dict, d: Path, smi: str, gen) -> dict:
+    """Phase 15 (a): cli.distill at full width from a --teacher-ckpt params
+    file of phase 3's towers, on a CelebA-style tree; the student served by
+    cli.swap; the tiny two-round run card vs CPU."""
+    import reface_tpu_torch.diffusion.distill as PD
+
+    cfg = SwapConfig()
+    tree = d / "celeba"
+    make_synthetic_celeba(str(tree), count=DISTILL_ITEMS, size=cfg.image_size, seed=15)
+    save_swap_params(d / "teacher.pt", cpu_params)
+    out_dir = d / "distill"
+    teacher_seen = {}
+    make_loss = PD.make_distill_loss
+
+    def make_logged(*a, **kw):
+        # the teacher the round starts with, kept to check that it stays
+        loss_fn, tt, ts = make_loss(*a, **kw)
+
+        def loss(student_fn, teacher_fn, *rest):
+            if "module" not in teacher_seen:
+                teacher_seen["module"] = teacher_fn
+                teacher_seen["sd"] = {k: v.to("cpu", copy=True)
+                                      for k, v in teacher_fn.state_dict().items()}
+            return loss_fn(student_fn, teacher_fn, *rest)
+
+        return loss, tt, ts
+
+    argv = ["--out", str(out_dir), "--teacher-ckpt", str(d / "teacher.pt"), "--dataset-dir",
+            str(tree), "--train-count", str(DISTILL_ITEMS), "--teacher-steps", "50",
+            "--target-steps", "10", "--max-rounds", "1", "--steps-per-round",
+            str(DISTILL_STEPS), "--batch-size", str(DISTILL_BATCH), "--image-size",
+            str(cfg.image_size), "--teacher-dtype", "bfloat16", "--log-every", "1"]
+    marks = []
+    draws_fn = PD.make_distill_draws
+
+    def marked(*a, **kw):
+        # each step starts with its draws: the launches between two marks
+        # are one step's
+        marks.append({k.__name__: collections.Counter(k.shapes) for k in KERNELS})
+        return draws_fn(*a, **kw)
+
+    PD.make_distill_loss, PD.make_distill_draws = make_logged, marked
+    reset_counts()  # the distillation run starts here
+    got = {}
+    try:
+        with recorded_launches(got):
+            res, text = run_driver(cli_distill.main, argv)
+            torch.cuda.synchronize()
+    finally:
+        PD.make_distill_loss, PD.make_distill_draws = make_loss, draws_fn
+    launches = counts()
+    plan = distill_step_plan(DISTILL_BATCH, DISTILL_K)
+    ends = marks[1:] + [{k: collections.Counter(v) for k, v in got.items()}]
+    if len(marks) != DISTILL_STEPS or any(marks[0].values()):
+        fail(f"cli.distill: {len(marks)} steps, launches before the first {marks[:1]}")
+    for i, (m0, m1) in enumerate(zip(marks, ends)):
+        check_plan(f"cli.distill step {i}", {k: dict(m1[k] - m0[k]) for k in m1}, plan)
+    history = res["history"]
+    if len(history) != DISTILL_STEPS or not all(math.isfinite(h["loss"]) for h in history):
+        fail(f"cli.distill's losses: {history}")
+    manifest = json.loads((out_dir / "manifest.json").read_text())
+    want_manifest = {"ddim_steps": 10, "cfg_scale": 1.0, "teacher_steps": 50,
+                     "teacher_cfg_scale": 3.0, "rounds": [10], "mode": "distilled"}
+    if manifest != want_manifest or "--ddim-steps 10 --scale 1.0" not in text.splitlines()[-1]:
+        fail(f"cli.distill's manifest {manifest} or last line {text.splitlines()[-1]}")
+
+    # the student moved, the teacher and the frozen towers did not
+    modules = res["modules"]
+    start = cpu_params["unet"]
+    student = modules.unet.state_dict()
+    moved = {k for k, v in student.items() if not torch.equal(v.cpu(), start[k].float())}
+    unused = {k for k in student if unused_cross_attention(k)}
+    if moved != set(student) - unused:
+        fail(f"student tensors that did not move {sorted(set(student) - unused - moved)[:6]} "
+             f"or unused ones that did {sorted(moved & unused)[:6]}")
+    teacher_same = all(torch.equal(v.cpu(), teacher_seen["sd"][k])
+                       for k, v in teacher_seen["module"].state_dict().items())
+    frozen_same = all(torch.equal(v.float().cpu(), cpu_params[name][k].float())
+                      for name in ("vae", "conditioner")
+                      for k, v in modules.towers()[name].state_dict().items())
+    if not (teacher_same and frozen_same):
+        fail(f"the teacher ({teacher_same}) or the frozen towers ({frozen_same}) changed")
+    timing = read_jsonl(out_dir / "timing.jsonl")
+    step_s = [r["step_s"] for r in timing]
+    peak = max(r.get("peak_bytes_in_use", 0) for r in timing)
+    print(f"  cli.distill ({smi}) --teacher-ckpt (phase 3's towers) --teacher-dtype bfloat16, "
+          f"round 0 of 50 -> 10 at batch {DISTILL_BATCH}, {DISTILL_STEPS} steps: losses "
+          f"{[round(h['loss'], 6) for h in history]}; {len(moved)} of {len(student)} student "
+          f"tensors moved (the {len(unused)} a one-token context leaves without a gradient did "
+          f"not), the teacher and the frozen towers bit-identical; step times "
+          f"{[round(s, 3) for s in step_s]} s, peak {peak / 2**30:.2f} GiB; launches (K1, K2, "
+          f"K3, K2r, K4, K5) {launches}, {DISTILL_STEPS} x the plan by shape; manifest "
+          f"{manifest}", flush=True)
+    stats = {"losses": [h["loss"] for h in history], "step_s": step_s,
+             "steady_step_s": sum(step_s[1:]) / len(step_s[1:]), "peak_gib": peak / 2**30,
+             "launches": dict(zip(("K1", "K2", "K3", "K2r", "K4", "K5"), launches)),
+             "moved": len(moved), "unused": len(unused)}
+
+    # the teacher window and one step, flash against einsum, and the teacher
+    # window's share of a step by CUDA events
+    ds = CelebAHQDataset(CelebAHQConfig(dataset_dir=str(tree), image_size=cfg.image_size,
+                                        train_count=DISTILL_ITEMS, data_seed=0))
+    raw = collate([ds[i] for i in range(DISTILL_BATCH)])
+    batch = {"target_image": raw["GT"], "inpaint_image": raw["inpaint_image"],
+             "inpaint_mask": raw["inpaint_mask"], "ref_clip224": raw["ref_imgs"]}
+    dcfg = PD.DistillConfig(teacher_steps=50, student_steps=10)
+    loss_fn, tt, _ = PD.make_distill_loss(dcfg, device=DEV)
+    inputs = cli_distill.distill_inputs(modules, batch)
+    draws = PD.make_distill_draws(DISTILL_BATCH, cfg.latent_size, dcfg, DEV, gen)
+    teacher = res["teacher"]  # the round's end: a copy of the student
+    params = list(modules.unet.parameters())
+
+    def loss_and_grads():
+        loss, _ = loss_fn(modules.unet, teacher, *inputs, draws)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.item(), {i: g.float() for i, g in enumerate(gs) if g is not None}
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    loss_f, g_f = loss_and_grads()  # warm
+    z0, rest, c, uc = inputs
+    a_t = tt.alphas[draws["i"] * DISTILL_K].reshape(-1, 1, 1, 1)
+    x = torch.sqrt(a_t) * z0 + torch.sqrt(1 - a_t) * draws["noise"].permute(0, 3, 1, 2)
+    window = lambda: PD.teacher_window(teacher, x, rest, draws["i"] * DISTILL_K, DISTILL_K,
+                                       tt, c, uc, 3.0)
+    ev[0].record()
+    with torch.no_grad():
+        end_f = window()
+    ev[1].record()
+    loss_f, g_f = loss_and_grads()
+    ev[2].record()
+    torch.cuda.synchronize()
+    window_ms, step_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    # the teacher window alone, then the student's step with the teacher's
+    # window held on the flash route (phase 7's comparison: one UNet forward
+    # and backward)
+    set_unet_attn(teacher, "einsum")
+    with torch.no_grad():
+        end_e = window()
+    set_unet_attn(teacher, "flash")
+    rel_window = float((end_f - end_e).double().norm() / end_e.double().norm())
+    set_unet_attn(modules.unet, "einsum")
+    before = counts()
+    loss_e, g_e = loss_and_grads()
+    ran = tuple(a - b for a, b in zip(counts(), before))
+    set_unet_attn(modules.unet, "flash")
+    rel_loss, rel_grad = abs(loss_f - loss_e) / abs(loss_e), rel_l2(g_f, g_e)
+    print(f"  the teacher window (5 steps, CFG 3, batch 8), flash vs einsum (bf16): x_end rel "
+          f"L2 {rel_window:.3e} (tol {DISTILL_TOL['window']:.0e}); one distillation step, the "
+          f"student's attention flash vs einsum (the teacher's flash): loss {loss_f:.6f} vs "
+          f"{loss_e:.6f} (rel {rel_loss:.3e}, tol {DISTILL_TOL['loss']:.0e}), student gradient "
+          f"rel L2 {rel_grad:.3e} (tol {DISTILL_TOL['grad']:.0e}); launches in the einsum step "
+          f"(K1, K2, K3, K2r, K4, K5) {ran} (the teacher's {10 * DISTILL_K} K2r only); the "
+          f"teacher window {window_ms:.1f} ms of a {step_ms:.1f} ms step "
+          f"({100 * window_ms / step_ms:.1f}%)", flush=True)
+    if ran != (0, 0, 0, 10 * DISTILL_K, 0, 0) or not (
+            rel_window <= DISTILL_TOL["window"] and rel_loss <= DISTILL_TOL["loss"]
+            and rel_grad <= DISTILL_TOL["grad"]):
+        fail("the distillation step with flash attention disagrees with einsum")
+    stats.update(einsum={"loss_rel": rel_loss, "grad_rel_l2": rel_grad,
+                         "teacher_window_rel_l2": rel_window},
+                 teacher_window_ms=window_ms, step_ms=step_ms,
+                 teacher_window_share=window_ms / step_ms)
+    del res, modules, teacher, params, g_f, g_e, inputs, teacher_seen, end_f, end_e
+    torch.cuda.empty_cache()
+
+    # the student served: cli.swap --ckpt <out>/params.pt --ddim-steps 10
+    # --scale 1.0 against FaceSwapper.swap on the same weights (bf16)
+    params_file = out_dir / ckpt_io.PARAMS_FILE
+    scfg = dataclasses.replace(cfg, ddim_steps=10, cfg_scale=1.0)
+    direct = FaceSwapper(scfg, {n: sd for n, sd in ckpt_io.load_params(str(params_file)).items()},
+                         device=DEV)
+    cli_common._round_weights(direct.towers().values(), torch.bfloat16)
+    images.imwrite(d / "source.png", photo_like(90, cfg.image_size, cfg.image_size))
+    images.imwrite(d / "target.png", photo_like(91, cfg.image_size, cfg.image_size))
+    src01 = cli_swap._read01(str(d / "source.png"))
+    ref = clip_normalize(torch.from_numpy(src01[None]).to(DEV).permute(0, 3, 1, 2))
+    tgt = cli_swap._read01(str(d / "target.png"), cfg.image_size)[None] * 2 - 1
+    mask = cli_common.default_inpaint_mask(cfg.image_size)[None]
+    want_img = direct.swap(target_image=tgt, inpaint_image=tgt * mask, inpaint_mask=mask,
+                           ref_clip224=ref.permute(0, 2, 3, 1),
+                           generator=torch.Generator(device=DEV).manual_seed(5))
+    want_img = ((want_img[0].cpu() + 1) / 2).clamp(0, 1)
+    del direct, ref
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = cli_swap.main(["--precropped", "--ckpt", str(params_file), "--ddim-steps", "10",
+                          "--scale", "1.0", "--seed", "5", "--source", str(d / "source.png"),
+                          "--target", str(d / "target.png"), "--outdir", str(d / "swapped")])
+    serve_s = time.perf_counter() - t0
+    got_img = images.imread(done[0][0])
+    diff = (torch.from_numpy(got_img).float() / 255 - want_img).abs().max().item()
+    served = counts()[:3]
+    print(f"  cli.swap --precropped --ckpt <out>/params.pt --ddim-steps 10 --scale 1.0 (the "
+          f"student, {params_file.stat().st_size / 2**30:.3f} GiB): within {diff * 255:.3f} "
+          f"levels of FaceSwapper.swap on the same weights (limit 1), {serve_s:.1f} s with the "
+          f"load; launches (K1, K2, K3) {served}", flush=True)
+    if diff > LEVEL + 1e-6:
+        fail(f"cli.swap on the distilled student is {diff * 255:.3f} levels off")
+    stats.update(cli_swap_levels_from_direct=diff * 255, cli_swap_launches=served)
+    stats["tiny_card_vs_cpu"] = distill_tiny_reference(d)
+    return stats
+
+
+@contextlib.contextmanager
+def float64_cpu(*modules):
+    """The modules in float64 for the block, their convs computing in it and
+    every Tensor.float() of the port widened to float64: a CPU reference of
+    an fp32 computation (the port's norms, LPIPS and discriminator compute
+    through .float())."""
+    orig = torch.Tensor.float
+    for m in modules:
+        m.double()
+        for layer in m.modules():
+            if hasattr(layer, "compute_dtype"):
+                layer.compute_dtype = torch.float64
+    torch.Tensor.float = lambda t: t.double() if t.is_floating_point() else orig(t)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def vae_tiny_reference() -> dict:
+    """One VAE trainer step at a tiny fp32 VAE whose mid-block is 512 wide
+    (256 px, a 32 x 32 latent: the flash kernels at d = 512 over 1024
+    tokens; remat as VAEConfig(remat=True)), the gate open, on the card, on
+    the CPU port and on the CPU port in float64, from the same weights,
+    batch and draws. The metrics, card against CPU, within 1e-5; the
+    gradients of both updates held to the float64 ones: the card's within
+    the larger of VAE_TINY_ABS and VAE_TINY_FP64 times the CPU port's fp32
+    distance (fp32 rounding alone moves the first layers' gradients by up to
+    ~1e-3)."""
+    from reface_tpu_torch.diffusion import vae_loss as PL
+    from reface_tpu_torch.nn.discriminator import NLayerDiscriminator
+
+    vcfg = VAEConfig(ch=32, ch_mult=(1, 2, 4, 16), num_res_blocks=1, dtype=torch.float32,
+                     remat=True)
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand((2, 256, 256, 3), generator=g) * 2 - 1
+    draws = PL.make_vae_draws(2, 32, "cpu", g)
+    lp = init_params(LPIPS(), seed=9).state_dict()
+    results = []
+    sd = disc_sd = None
+    for dev, dt in ((DEV, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        vae = AutoencoderKL(vcfg, device=dev, param_dtype=torch.float32)
+        if sd is None:
+            init_params(vae, seed=10, dezero=True)
+            sd = {k: v.to("cpu", copy=True) for k, v in vae.state_dict().items()}
+        vae.load_state_dict(sd)
+        disc, lpips = NLayerDiscriminator(device=dev), LPIPS(device=dev)
+        init_state, step_fn, _, _ = PL.make_vae_train_step(
+            vae, PL.VAELossConfig(disc_start=0, kl_weight=1e-6, disc_weight=0.5),
+            disc=disc, lpips=lpips)
+        state = init_state(seed=11, disc_params=disc_sd)
+        disc_sd = disc_sd or {k: v.to("cpu", copy=True) for k, v in disc.state_dict().items()}
+        grads = {}
+        for tower, opt in (("vae", state.opt_ae), ("disc", state.opt_disc)):
+            def recording(gs, opt=opt, tower=tower, step=opt.step):
+                grads.update({f"{tower}.{k}": gg.to("cpu", torch.float64, copy=True)
+                              for k, gg in zip(opt.names, gs)})
+                return step(gs)
+            opt.step = recording
+        lpips.load_state_dict(lp)
+        wide = float64_cpu(vae, disc, lpips) if dt == torch.float64 else contextlib.nullcontext()
+        reset_counts()
+        with wide:
+            _, m = step_fn(state, x.to(dev, dt), {k: v.to(dev, dt) for k, v in draws.items()},
+                           lpips_params=lpips.state_dict())
+        results.append(({k: v.item() for k, v in m.items()}, grads, counts()))
+    (mc, gc, launched), (mp, gp, _), (_, g64, _) = results
+    rel_m = max(abs(mc[k] - v) / max(abs(v), 1e-12) for k, v in mp.items() if v)
+    total = sum(float(v.pow(2).sum()) for v in g64.values()) ** 0.5
+
+    def worst(grads):
+        return max((float((grads[k] - v).norm()) / max(float(v.norm()), 1e-3 * total), k)
+                   for k, v in g64.items())
+
+    (w_card, n_card), (w_cpu, n_cpu) = worst(gc), worst(gp)
+    lim = max(VAE_TINY_ABS, VAE_TINY_FP64 * w_cpu)
+    print(f"  tiny 256 px VAE trainer step (mid-block 512 wide), card vs CPU (fp32): metrics "
+          f"rel {rel_m:.3e} (tol {TRAINER_TINY_TOL['loss']:.0e}); against the CPU port in "
+          f"float64, worst gradient rel L2 over {len(g64)} tensors: the card {w_card:.3e} "
+          f"({n_card}), the CPU port in fp32 {w_cpu:.3e} ({n_cpu}), limit {lim:.3e} (the "
+          f"larger of {VAE_TINY_ABS:.0e} and {VAE_TINY_FP64}x the CPU's); "
+          f"launches (K1, K2, K3, K2r, K4, K5) {launched}", flush=True)
+    if launched != (0, 1, 0, 3, 2, 2) or not (rel_m <= TRAINER_TINY_TOL["loss"]
+                                              and w_card <= lim):
+        fail("the card's tiny VAE trainer step disagrees with the CPU port")
+    return {"metrics_rel": rel_m, "grad_rel_l2_vs_fp64": w_card,
+            "cpu_fp32_grad_rel_l2_vs_fp64": w_cpu, "limit": lim}
+
+
+def vae_trainer_path(cpu_params: dict, d: Path, smi: str, gen) -> dict:
+    """Phase 15 (b): cli.train_vae at VAEConfig() widths from a REFace-layout
+    file of phase 3's VAE and a seeded LPIPS file, with the gate open and
+    closed; one generator step against einsum; the tiny step card vs CPU."""
+    from reface_tpu_torch.cli import train_vae as cli_train_vae
+    from reface_tpu_torch.diffusion import vae_loss as PL
+
+    imgs = d / "vae_images"
+    imgs.mkdir()
+    for i in range(VAE_IMAGES - 1):
+        images.imwrite(imgs / f"{i}.png", photo_like(100 + i, 320, 300))
+    (imgs / "upper.JPG").write_bytes(images.imencode(".jpg", photo_like(99, 400, 400)))
+    torch.save({"state_dict": {**{VAE_PREFIX + k: v for k, v in cpu_params["vae"].items()},
+                               UNET_PREFIX + "out.2.bias": cpu_params["unet"]["out.2.bias"]}},
+               d / "sd.ckpt")
+    torch.save(init_params(LPIPS(), seed=5).state_dict(), d / "lpips.pth")
+    make = PL.make_vae_train_step
+    stats = {}
+    for run, gate, n_steps in (("gate_open", "0", 3), ("gated", "50001", 2)):
+        snap, calls = {}, []
+
+        def make_logged(*a, **kw):
+            # the weights the first step starts from, and each step's launches
+            init_state, step_fn, disc, lpips = make(*a, **kw)
+
+            def init(*a2, **kw2):
+                state = init_state(*a2, **kw2)
+                snap.update({f"vae.{k}": v.to("cpu", copy=True)
+                             for k, v in state.vae.state_dict().items()})
+                snap.update({f"disc.{k}": v.to("cpu", copy=True)
+                             for k, v in state.disc.state_dict().items()})
+                return state
+
+            def step(*a2, **kw2):
+                got = {}
+                with recorded_launches(got):
+                    res = step_fn(*a2, **kw2)
+                    torch.cuda.synchronize()
+                calls.append(got)
+                return res
+
+            return init, step, disc, lpips
+
+        out = d / f"vae_{run}"
+        PL.make_vae_train_step = make_logged
+        reset_counts()  # the VAE trainer's run starts here
+        try:
+            state, text = run_driver(cli_train_vae.main, [
+                "--images", str(imgs), "--out", str(out), "--vae-ckpt", str(d / "sd.ckpt"),
+                "--lpips-ckpt", str(d / "lpips.pth"), "--steps", str(n_steps),
+                "--batch-size", str(VAE_BATCH), "--image-size", str(VAE_SIZE),
+                "--disc-start", gate, "--log-every", "1"])
+        finally:
+            PL.make_vae_train_step = make
+        launches = counts()
+        for i, got in enumerate(calls):
+            check_plan(f"cli.train_vae ({run}) step {i}", got, vae_step_plan())
+        if len(calls) != n_steps or f"[vae] {VAE_IMAGES} images @ {VAE_SIZE}px" not in text \
+                or "prefix=first_stage_model." not in text:
+            fail(f"cli.train_vae ({run}): {len(calls)} steps, report {text[:400]}")
+        rows = read_jsonl(out / "metrics.jsonl")
+        if len(rows) != n_steps or not all(math.isfinite(v) for r in rows for v in r.values()):
+            fail(f"cli.train_vae ({run}) metrics {rows}")
+        d_w = [r["d_weight"] for r in rows]
+        if (gate == "0") != all(w > 0 for w in d_w) or (gate != "0" and any(d_w)):
+            fail(f"cli.train_vae ({run}): d_weight {d_w}")
+        now = {f"vae.{k}": v.cpu() for k, v in state.vae.state_dict().items()}
+        now.update({f"disc.{k}": v.cpu() for k, v in state.disc.state_dict().items()})
+        moved = {k for k, v in now.items() if not torch.equal(v, snap[k])}
+        want_moved = {k for k in now if gate == "0" or k.startswith("vae.")}
+        if moved != want_moved:
+            fail(f"cli.train_vae ({run}): tensors that did not move "
+                 f"{sorted(want_moved - moved)[:6]} or that did {sorted(moved - want_moved)[:6]}")
+        timing = read_jsonl(out / "timing.jsonl")
+        step_s = [r["step_s"] for r in timing]
+        peak = max(r.get("peak_bytes_in_use", 0) for r in timing)
+        stats[run] = {"step_s": step_s, "steady_step_s": sum(step_s[1:]) / len(step_s[1:]),
+                      "peak_gib": peak / 2**30, "d_weight": d_w,
+                      "aeloss": [r["aeloss"] for r in rows],
+                      "launches": dict(zip(("K1", "K2", "K3", "K2r", "K4", "K5"), launches))}
+        print(f"  cli.train_vae ({smi}) --disc-start {gate}, VAEConfig() at {VAE_SIZE} px, "
+              f"batch {VAE_BATCH}, {n_steps} steps (a .JPG among the {VAE_IMAGES} images): "
+              f"aeloss {[round(r['aeloss'], 4) for r in rows]}, d_weight {d_w}; "
+              f"{len(moved)} of {len(now)} tensors moved ({'both trees' if gate == '0' else 'the VAE; the discriminator at factor 0 did not'}); "
+              f"step times {[round(s, 3) for s in step_s]} s, peak {peak / 2**30:.2f} GiB; "
+              f"launches (K1, K2, K3, K2r, K4, K5) {launches}, each step as planned by shape",
+              flush=True)
+        if gate == "0":
+            trained = state
+        else:
+            del state
+
+    # one generator step, flash against einsum (the mid-block's attention)
+    import reface_tpu_torch.nn.vae as VAE_MOD
+
+    x = torch.from_numpy(cli_train_vae._load_images(str(imgs), VAE_SIZE)[:VAE_BATCH]).to(DEV)
+    x = x.permute(0, 3, 1, 2).contiguous()
+    eps = torch.randn((VAE_BATCH, 4, VAE_SIZE // 8, VAE_SIZE // 8), generator=gen, device=DEV)
+    lpips = LPIPS(device=DEV).eval().requires_grad_(False)
+    lpips.load_state_dict(torch.load(d / "lpips.pth", weights_only=True))
+    lcfg = PL.VAELossConfig(disc_start=0, kl_weight=1e-6, disc_weight=0.5)
+    params = list(trained.vae.parameters())
+
+    def gen_grads():
+        loss, aux = PL.generator_loss(trained.vae, trained.disc, lpips, x, eps, 1, lcfg)
+        gs = torch.autograd.grad(loss, params)
+        return loss.item(), aux["d_weight"].item(), {i: g.float() for i, g in enumerate(gs)}
+
+    loss_f, dw_f, g_f = gen_grads()
+    orig_mha = VAE_MOD.multi_head_attention
+    VAE_MOD.multi_head_attention = lambda q, k, v, num_heads, impl="auto": orig_mha(
+        q, k, v, num_heads, "einsum")
+    before = counts()
+    try:
+        loss_e, dw_e, g_e = gen_grads()
+    finally:
+        VAE_MOD.multi_head_attention = orig_mha
+    flash_runs = sum(counts()[1:]) - sum(before[1:])
+    rel_loss, rel_grad = abs(loss_f - loss_e) / abs(loss_e), rel_l2(g_f, g_e)
+    rel_dw = abs(dw_f - dw_e) / abs(dw_e)
+    print(f"  one generator step (gate open), flash vs einsum at the mid-block (bf16): loss "
+          f"{loss_f:.6f} vs {loss_e:.6f} (rel {rel_loss:.3e}, tol {TRAIN_TOL['loss']:.0e}), "
+          f"d_weight rel {rel_dw:.3e}, VAE gradient rel L2 {rel_grad:.3e} (tol "
+          f"{TRAIN_TOL['grad']:.0e}); K2/flash launches in the einsum run {flash_runs}",
+          flush=True)
+    if flash_runs or not (rel_loss <= TRAIN_TOL["loss"] and rel_grad <= TRAIN_TOL["grad"]
+                          and rel_dw <= TRAIN_TOL["grad"]):
+        fail("the VAE generator step with flash attention disagrees with einsum")
+    stats["einsum"] = {"loss_rel": rel_loss, "grad_rel_l2": rel_grad, "d_weight_rel": rel_dw}
+    del trained, params, g_f, g_e, lpips
+    torch.cuda.empty_cache()
+    stats["tiny_card_vs_cpu"] = vae_tiny_reference()
+    return stats
+
+
+def landmark_trainer_path(d: Path, smi: str) -> dict:
+    """Phase 15 (c): cli.train_landmarks at LandmarkNetConfig(), 256 px, on
+    faces make_landmark_faces drew; the file read back through
+    build_raw_pipeline's --landmark-ckpt."""
+    from types import SimpleNamespace
+
+    from reface_tpu_torch.cli import train_landmarks as cli_train_landmarks
+    from reface_tpu_torch.data import make_landmark_faces
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    faces, lms = make_landmark_faces(LM_FACES, size=LM_SIZE, seed=16)
+    faces_s = time.perf_counter() - t0
+    np_path = d / "faces.npz"
+    np.savez(np_path, images=faces, landmarks=lms)
+    out = d / "lmnet.pt"
+    reset_counts()
+    t0 = time.perf_counter()
+    net, text = run_driver(cli_train_landmarks.main, [
+        "--data", str(np_path), "--out", str(out), "--steps", str(LM_STEPS), "--batch-size",
+        str(LM_BATCH), "--lr", "3e-3", "--val-frac", "0.1", "--log-every", "50"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    l1 = [float(m) for m in re.findall(r"\[lm\] step \d+: L1 ([\d.]+) px", text)]
+    err = float(re.search(rf"val mean px error vs labels @{LM_SIZE}px: ([\d.]+)", text).group(1))
+    n_val = max(1, int(LM_FACES * 0.1))
+    n_tr = LM_FACES - n_val
+    base = float(np.sqrt(((lms[:n_tr].mean(0)[None] - lms[n_tr:]) ** 2).sum(-1)).mean())
+    swapper = FaceSwapper(tiny_swap_config(64), device=DEV)
+    pipe = cli_common.build_raw_pipeline(SimpleNamespace(landmark_ckpt=str(out)), swapper,
+                                         RawPipelineConfig())
+    saved = torch.load(out, weights_only=True)
+    loaded = all(torch.equal(v, saved[k].to(v.device, v.dtype))
+                 for k, v in pipe.landmark_net.state_dict().items())
+    print(f"  cli.train_landmarks ({smi}) at LandmarkNetConfig(), {LM_SIZE} px: {LM_FACES} faces "
+          f"drawn in {faces_s:.1f} s, {LM_STEPS} steps of batch {LM_BATCH} in {train_s:.1f} s "
+          f"({LM_STEPS * LM_BATCH / train_s:.0f} faces/s); L1 {l1} px; held-out error {err:.2f} "
+          f"px against the mean shape's {base:.2f} px; the file read back by "
+          f"build_raw_pipeline's --landmark-ckpt: {loaded}; launches {counts()}", flush=True)
+    if not (l1[-1] < l1[0] and err < base and loaded):
+        fail("cli.train_landmarks did not converge below the mean shape or its file did not load")
+    del net, pipe, swapper
+    torch.cuda.empty_cache()
+    return {"faces_s": faces_s, "train_s": train_s, "l1": l1, "val_px": err,
+            "mean_shape_px": base}
+
+
+def trainers_path(cpu_params: dict, smi: str, gen) -> dict:
+    """Phase 15: the distillation, VAE and landmark trainers through their
+    drivers, then K2, K2r, K4 and K5 at the shapes they add. Returns its
+    stats; the files are deleted at the end."""
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_trainers"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    stats = {}
+    try:
+        t0 = time.perf_counter()
+        stats["distill"] = distill_path(cpu_params, d, smi, gen)
+        stats["distill"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["train_vae"] = vae_trainer_path(cpu_params, d, smi, gen)
+        stats["train_vae"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["train_landmarks"] = landmark_trainer_path(d, smi)
+        stats["train_landmarks"]["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"  K2 at the VAE trainer's {VAE_WIDE} encode, K2r, K4 and K5 there and at the "
+          f"teacher's batch-8 shapes against their plain versions", flush=True)
+    stats["k2"] = check_attention("K2", wide_attention, collections.Counter({VAE_WIDE: 1}), [],
+                                  gen)
+    shapes = [VAE_WIDE, *TEACHER_SHAPES]
+    stats["kernels_worst"] = check_train_kernels(gen, shapes)
+    stats["kernels"] = {key: {str(list(shape)): st for shape, st in by.items()}
+                        for key, by in time_train_kernels(gen, shapes).items()}
+    return stats
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -4354,10 +5007,21 @@ def main():
           f"fp32 guided swap card vs CPU, cli.swap --guidance, make-priors (tps, dift) and the "
           f"prior-start test bench", flush=True)
     guided_stats = guided_path(cpu_params, smi, gen)
-    del cpu_params
     torch.cuda.empty_cache()
     guided_stats["wall_s"] = t14 = time.perf_counter() - t14
     print(f"  phase 14 took {t14:.1f} s of wall", flush=True)
+
+    t15 = time.perf_counter()
+    print(f"phase 15: the remaining trainers on phase 3's towers: cli.distill at SwapConfig() "
+          f"widths, batch {DISTILL_BATCH}, and the distilled student served by cli.swap; "
+          f"cli.train_vae at VAEConfig() widths, {VAE_SIZE} px, batch {VAE_BATCH}, the gate "
+          f"open and closed; cli.train_landmarks at LandmarkNetConfig(), {LM_SIZE} px; the tiny "
+          f"fp32 trainers card vs CPU", flush=True)
+    trainer_stats = trainers_path(cpu_params, smi, gen)
+    del cpu_params
+    torch.cuda.empty_cache()
+    trainer_stats["wall_s"] = t15 = time.perf_counter() - t15
+    print(f"  phase 15 took {t15:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -4557,6 +5221,29 @@ def main():
                                 **{k: st[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
                                    if k in st},
                                 **{k: st[k] for k in ("library_device_ms", "alone_ms") if k in st}}
+    # phase 15: each wrapper's launches in the trainers' runs (cli.distill's
+    # 3 steps, cli.train_vae's 3 steps with the gate open and 2 with it
+    # closed); K2 at the VAE trainer's encode, K2r, K4 and K5 at the teacher's
+    # batch-8 shapes and at the VAE trainer's mid-block
+    trainer_runs = {"cli.distill": trainer_stats["distill"]["launches"],
+                    "cli.train_vae --disc-start 0": trainer_stats["train_vae"]["gate_open"]["launches"],
+                    "cli.train_vae gated": trainer_stats["train_vae"]["gated"]["launches"]}
+    for row, key in zip([rows[i] for i in (0, 1, 3, 4, 5)], ("K1", "K2", "K2r", "K4", "K5")):
+        row["launches_trainers"] = {run: st[key] for run, st in trainer_runs.items()}
+    rows[1]["vae_trainer_batch4"] = {"shape": list(VAE_WIDE), **{k: trainer_stats["k2"][k] for k in (
+        "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    for row_set, shapes, what in ((rows[3:6], TEACHER_SHAPES, "distill_teacher_batch8"),
+                                  (rows[6:9], (VAE_WIDE,), "vae_trainer_batch4")):
+        for row, key in zip(row_set, ("K2r", "K4", "K5")):
+            w = trainer_stats["kernels_worst"][key]
+            row[what] = {"max_abs_err_worst": w["bf16"], "rel_l2_err_worst": w["rel"]}
+            for shape in shapes:
+                st = trainer_stats["kernels"][key][str(list(shape))]
+                _, by = bound_ms(st["bytes"], st["ops"], "bf16",
+                                 0.0 if key == "K4" and shape[3] > 128 else st["exps"])
+                row[what][str(list(shape))] = {"bound_by": by, **{k: st[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms", "alone_ms")
+                    if k in st}}
     rows[1]["batch4"] = {k: b4_k2[k] for k in (
         "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     steady = lat[1:] or lat
@@ -4586,12 +5273,21 @@ def main():
           f"guided request (id, batch {BATCH}) {guided_stats['id']['timed_s']:.3f} s, peak "
           f"{guided_stats['id']['peak_gib']:.2f} GiB, (id, seg, exp) "
           f"{guided_stats['id_seg_exp']['s']:.3f} s, phase 14 {guided_stats['wall_s']:.1f} s; "
-          f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"cli.distill (batch {DISTILL_BATCH}) steady step "
+          f"{trainer_stats['distill']['steady_step_s']:.3f} s, peak "
+          f"{trainer_stats['distill']['peak_gib']:.2f} GiB, teacher window "
+          f"{100 * trainer_stats['distill']['teacher_window_share']:.1f}%; cli.train_vae (batch "
+          f"{VAE_BATCH}, {VAE_SIZE} px) steady step "
+          f"{trainer_stats['train_vae']['gate_open']['steady_step_s']:.3f} s, peak "
+          f"{trainer_stats['train_vae']['gate_open']['peak_gib']:.2f} GiB; cli.train_landmarks "
+          f"{trainer_stats['train_landmarks']['val_px']:.2f} px held out (mean shape "
+          f"{trainer_stats['train_landmarks']['mean_shape_px']:.2f}), phase 15 "
+          f"{trainer_stats['wall_s']:.1f} s; wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
                       "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
                       "zero_tile": zero_tile, "drivers": driver_stats,
                       "test_bench": bench_stats, "train_cli": cli_stats,
-                      "guided": guided_stats}), flush=True)
+                      "guided": guided_stats, "trainers": trainer_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -30,7 +30,7 @@ __all__ = ["unet_from_jax", "vae_from_jax", "clip_conditioner_from_jax",
            "arcface_from_jax", "conditioner_from_jax", "lpips_from_jax",
            "landmark_head_from_jax", "swap_from_jax", "bisenet_from_jax",
            "landmark_net_from_jax", "clip_vision_from_jax", "resnet50_from_jax",
-           "hopenet_from_jax", "facerecon_from_jax"]
+           "hopenet_from_jax", "facerecon_from_jax", "discriminator_from_jax"]
 
 _ID = lambda a: a
 _NORM = {"scale": "weight", "bias": "bias"}
@@ -404,6 +404,37 @@ def bisenet_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """nn/bisenet.py BiSeNet params -> the port's BiSeNet state_dict, keyed
     as the face-parsing checkpoint."""
     return _convert(tree, _bisenet_rule)
+
+
+# ---------------------------------------------------- PatchGAN discriminator
+
+def _discriminator_rule(grads: bool):
+    """conv0 -> main.0, conv{n} -> main.{3n-1}, norm{n} -> main.{3n}, head ->
+    main.{3 * n_layers + 2}. The flax norm stores its scale as the offset
+    from 1 (its init is N(0, 0.02) + 1 at use), so a parameter tree's scale
+    gains 1 and a gradient tree's is taken as it is."""
+    def rule(p, n_layers):
+        leaf, top = p[-1], p[0]
+        if top == "head":
+            return f"main.{3 * n_layers + 2}.{_tw(leaf)}", _xform(leaf, "conv")
+        m = re.match(r"(conv|norm)(\d+)$", top)
+        if not m:
+            raise ValueError(f"unmapped discriminator path {'/'.join(p)}")
+        n = int(m.group(2))
+        if m.group(1) == "conv":
+            return f"main.{max(3 * n - 1, 0)}.{_tw(leaf)}", _xform(leaf, "conv")
+        shift = (lambda a: a) if grads or leaf != "scale" else (lambda a: a + 1.0)
+        return f"main.{3 * n}.{_NORM[leaf]}", shift
+    return rule
+
+
+def discriminator_from_jax(tree: Mapping, grads: bool = False) -> dict[str, torch.Tensor]:
+    """nn/discriminator.py NLayerDiscriminator params (or, grads=True, a
+    gradient tree of them) -> the port's state_dict under taming's names."""
+    inner = tree["params"] if "params" in tree else tree
+    n_layers = sum(1 for k in inner if k.startswith("norm"))
+    rule = _discriminator_rule(grads)
+    return _convert(tree, lambda p: rule(p, n_layers))
 
 
 # ------------------------------------------------------------ LandmarkNet

@@ -51,7 +51,7 @@ import torch
 __all__ = ["CheckpointError", "load_torch_state_dict", "expand_conv_in",
            "reface_state_dicts", "bisenet_state_dict", "safety_state_dict",
            "clip_vision_state_dict", "hopenet_state_dict", "facerecon_state_dict",
-           "arcface_state_dict", "lpips_state_dict",
+           "arcface_state_dict", "lpips_state_dict", "vae_state_dict",
            "load_swap_params", "save_swap_params", "is_swap_params", "UNET_PREFIX",
            "VAE_PREFIX"]
 
@@ -141,6 +141,17 @@ def reface_state_dicts(cfg, sd: Mapping, clip_sd: Mapping | None = None,
     return {"unet": _select(towers["unet"], _strip(sd, UNET_PREFIX), "unet"),
             "vae": _select(towers["vae"], _strip(sd, VAE_PREFIX), "vae"),
             "conditioner": _select(towers["conditioner"], cond_src, "conditioner")}
+
+
+def vae_state_dict(sd: Mapping, config=None) -> tuple[dict, str]:
+    """(the VAE's state dict, the prefix found) from a torch state dict: a
+    full SD / REFace checkpoint nests it under `first_stage_model.`, a
+    standalone dump does not (the JAX cli/train_vae.py's detection)."""
+    from reface_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
+
+    prefix = VAE_PREFIX if any(k.startswith(VAE_PREFIX) for k in sd) else ""
+    return (_select(AutoencoderKL(config or VAEConfig(), device="meta"),
+                    _strip(sd, prefix), "vae"), prefix)
 
 
 def bisenet_state_dict(sd: Mapping, config=None) -> dict:

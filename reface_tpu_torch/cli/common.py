@@ -22,7 +22,7 @@ import torch
 from reface_tpu_torch.io.images import imdecode, imread, imwrite, resize_linear
 
 __all__ = ["add_model_args", "resolve_device", "apply_config_node", "resolve_swap_config",
-           "build_swapper", "build_raw_pipeline", "build_safety_checker",
+           "refuse_orbax_dir", "read_swap_params", "build_swapper", "build_raw_pipeline", "build_safety_checker",
            "decode_keep_mask", "default_inpaint_mask", "save_image_pm1", "save_grid_pm1"]
 
 
@@ -171,21 +171,36 @@ def _round_weights(modules, dtype: torch.dtype) -> None:
                 t.copy_(t.to(dtype))
 
 
+def refuse_orbax_dir(path: str, flag: str) -> None:
+    """SystemExit for a directory that is a JAX (orbax) parameter tree."""
+    raise SystemExit(
+        f"{flag} {path} is a directory, a JAX (orbax) parameter tree, "
+        "which needs JAX to read: convert it once with "
+        "scripts/jax_params_to_torch.py and pass the file it writes")
+
+
+def read_swap_params(cfg, path: str, clip_path=None, arcface_path=None,
+                     flag: str = "--ckpt") -> dict:
+    """{"unet", "vae", "conditioner"} state dicts from what --ckpt takes: a
+    REFace last.ckpt (with standalone CLIP / ArcFace files) or the port's
+    params file; a directory (a JAX orbax tree) is refused."""
+    from reface_tpu_torch.ckpt.from_torch import load_swap_params
+
+    if os.path.isdir(path):
+        refuse_orbax_dir(path, flag)
+    return load_swap_params(cfg, path, clip_path, arcface_path)
+
+
 def build_swapper(args):
     """Resolve config and weights into a ready FaceSwapper on --device."""
-    from reface_tpu_torch.ckpt.from_torch import load_swap_params, save_swap_params
+    from reface_tpu_torch.ckpt.from_torch import save_swap_params
     from reface_tpu_torch.pipelines.swap import FaceSwapper
 
     cfg = resolve_swap_config(args)
     device = resolve_device(args)
     params = None
     if args.ckpt is not None:
-        if os.path.isdir(args.ckpt):
-            raise SystemExit(
-                f"--ckpt {args.ckpt} is a directory, a JAX (orbax) parameter tree, "
-                "which needs JAX to read: convert it once with "
-                "scripts/jax_params_to_torch.py and pass the file it writes")
-        params = load_swap_params(cfg, args.ckpt, args.clip_ckpt, args.arcface_ckpt)
+        params = read_swap_params(cfg, args.ckpt, args.clip_ckpt, args.arcface_ckpt)
     swapper = FaceSwapper(cfg, params, device=device, seed=args.seed)
     if getattr(args, "save_params", None):
         save_swap_params(args.save_params, params or {

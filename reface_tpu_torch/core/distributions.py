@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -29,6 +30,10 @@ class DiagonalGaussian:
     def std(self) -> torch.Tensor:
         return torch.exp(0.5 * self.logvar)
 
+    @property
+    def var(self) -> torch.Tensor:
+        return torch.exp(self.logvar)
+
     def sample(self, generator: torch.Generator | None = None) -> torch.Tensor:
         noise = torch.randn(self.mean.shape, generator=generator,
                             device=self.mean.device, dtype=self.mean.dtype)
@@ -36,3 +41,21 @@ class DiagonalGaussian:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self, other: "DiagonalGaussian | None" = None) -> torch.Tensor:
+        """KL(self || other), or against N(0, 1) when other is None, summed
+        over every dimension but the batch: (B,)."""
+        dims = tuple(range(1, self.mean.ndim))
+        if other is None:
+            return 0.5 * torch.sum(self.mean**2 + self.var - 1.0 - self.logvar, dim=dims)
+        return 0.5 * torch.sum(
+            (self.mean - other.mean) ** 2 / other.var + self.var / other.var
+            - 1.0 - self.logvar + other.logvar, dim=dims)
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """Negative log-likelihood of `sample`, summed over every dimension
+        but the batch: (B,)."""
+        logtwopi = math.log(2.0 * math.pi)
+        dims = tuple(range(1, self.mean.ndim))
+        return 0.5 * torch.sum(logtwopi + self.logvar + (sample - self.mean) ** 2 / self.var,
+                               dim=dims)

@@ -1,15 +1,19 @@
 """Host-side data of the port (port of reface_tpu/data): the CelebA-HQ and
-FFHQ training datasets with their augmentation, the synthetic trees, the
-frozen test bench and the prefetching loader. The landmark faces of
-synthetic.py wait for the landmark trainer (ROADMAP A13b), the video reader
-for the video path (ROADMAP A9c)."""
+FFHQ training datasets with their augmentation, the synthetic trees and
+landmark faces, the frozen test bench and the prefetching loader. The video
+reader waits for the video path (ROADMAP A9c)."""
 
 from reface_tpu_torch.data.celeba import CelebAHQConfig, CelebAHQDataset
 from reface_tpu_torch.data.ffhq import FFHQConfig, FFHQDataset
 from reface_tpu_torch.data.loader import PrefetchLoader, collate
-from reface_tpu_torch.data.synthetic import make_synthetic_celeba, make_synthetic_ffhq
+from reface_tpu_torch.data.synthetic import (
+    make_landmark_faces,
+    make_synthetic_celeba,
+    make_synthetic_ffhq,
+)
 from reface_tpu_torch.data.test_bench import TestBenchConfig, TestBenchDataset
 
 __all__ = ["CelebAHQConfig", "CelebAHQDataset", "FFHQConfig", "FFHQDataset",
            "PrefetchLoader", "collate", "make_synthetic_celeba", "make_synthetic_ffhq",
+           "make_landmark_faces",
            "TestBenchConfig", "TestBenchDataset"]

@@ -45,7 +45,7 @@ import numpy as np
 
 __all__ = ["imdecode", "imread", "imencode", "imwrite", "resize_linear",
            "resize_nearest", "rgb_to_bgr", "bgr_to_rgb", "open_rgb", "to_gray_pil",
-           "resize_bicubic_pil"]
+           "resize_bicubic_pil", "resize_bilinear_pil"]
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _JPEG_ERRORS = {
@@ -395,21 +395,32 @@ def _pil_bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _pil_taps(src: int, dst: int):
-    """PIL's precompute_coeffs + normalize_coeffs_8bpc for BICUBIC: the
-    source index and the 22-bit fixed-point weight of each tap of each
-    output position. A shrink widens the support by the scale (PIL's
+def _pil_triangle(x: np.ndarray) -> np.ndarray:
+    """PIL's bilinear_filter: 1 - |x| inside (-1, 1)."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# PIL's filters with their support at scale 1
+_PIL_FILTERS = {"bicubic": (_pil_bicubic, 2.0), "bilinear": (_pil_triangle, 1.0)}
+
+
+def _pil_taps(src: int, dst: int, kind: str = "bicubic"):
+    """PIL's precompute_coeffs + normalize_coeffs_8bpc for BICUBIC or
+    BILINEAR: the source index and the 22-bit fixed-point weight of each tap
+    of each output position. A shrink widens the support by the scale (PIL's
     antialias); weights are normalised in double, summed in tap order."""
+    filt, base = _PIL_FILTERS[kind]
     scale = src / dst
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(dst) + 0.5) * scale
     # C's (int) truncates toward zero
     xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), src) - xmin
     taps = np.arange(ksize)
-    w = _pil_bicubic(((taps[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = filt(((taps[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
     w[taps[None] >= xmax[:, None]] = 0.0
     ww = np.zeros(dst)
     for t in range(ksize):
@@ -419,11 +430,11 @@ def _pil_taps(src: int, dst: int):
     return np.minimum(xmin[:, None] + taps[None], src - 1), k
 
 
-def _pil_pass(img: np.ndarray, axis: int, dst: int) -> np.ndarray:
+def _pil_pass(img: np.ndarray, axis: int, dst: int, kind: str = "bicubic") -> np.ndarray:
     """One of PIL's 8bpc resample passes along `axis` (0 rows, 1 columns):
     the taps summed in int32 (PIL's INT32) from a half, shifted down and
     clipped to uint8 (clip8)."""
-    idx, k = _pil_taps(img.shape[axis], dst)
+    idx, k = _pil_taps(img.shape[axis], dst, kind)
     src = img.astype(np.int32)
     shape = [1] * img.ndim
     shape[axis] = dst
@@ -434,17 +445,28 @@ def _pil_pass(img: np.ndarray, axis: int, dst: int) -> np.ndarray:
     return np.clip(acc >> _PIL_BITS, 0, 255).astype(np.uint8)
 
 
+def _resize_pil(img: np.ndarray, height: int, width: int, kind: str) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_{kind}_pil takes uint8, got {img.dtype}")
+    out = img.copy()
+    if img.shape[1] != width:
+        out = _pil_pass(out, 1, width, kind)
+    if img.shape[0] != height:
+        out = _pil_pass(out, 0, height, kind)
+    return out
+
+
 def resize_bicubic_pil(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """`Image.fromarray(img).resize((width, height), Image.BICUBIC)` for an
     (H, W[, C]) uint8 image: PIL's convolution resample, the horizontal pass
     and then the vertical, each clipped to uint8; an image already at the
     size comes back unchanged (a copy)."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"resize_bicubic_pil takes uint8, got {img.dtype}")
-    out = img.copy()
-    if img.shape[1] != width:
-        out = _pil_pass(out, 1, width)
-    if img.shape[0] != height:
-        out = _pil_pass(out, 0, height)
-    return out
+    return _resize_pil(img, height, width, "bicubic")
+
+
+def resize_bilinear_pil(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """`Image.fromarray(img).resize((width, height), Image.BILINEAR)`: the
+    same convolution resample with PIL's triangle filter, whose support
+    scales with the shrink (antialiased, unlike resize_linear's cv2 rule)."""
+    return _resize_pil(img, height, width, "bilinear")

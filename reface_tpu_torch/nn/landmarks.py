@@ -58,11 +58,12 @@ class LandmarkNetConfig:
 class _Block(nn.Module):
     """3x3 stride-2 conv, GroupNorm(8), SiLU, 3x3 conv, GroupNorm(8), SiLU."""
 
-    def __init__(self, cin: int, cout: int, dtype, device=None):
+    def __init__(self, cin: int, cout: int, dtype, device=None, param_dtype=None):
         super().__init__()
-        self.down = Conv2d(cin, cout, 3, stride=2, padding=1, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.down = Conv2d(cin, cout, 3, stride=2, padding=1, **kw)
         self.norm = GroupNorm32(cout, num_groups=8, device=device)
-        self.conv = Conv2d(cout, cout, 3, padding=1, dtype=dtype, device=device)
+        self.conv = Conv2d(cout, cout, 3, padding=1, **kw)
         self.norm2 = GroupNorm32(cout, num_groups=8, device=device)
 
     def forward(self, x):
@@ -74,16 +75,20 @@ class LandmarkNet(nn.Module):
     """(B, 3, S, S) in [-1,1] -> (B, 136) pixel coordinates at input scale.
 
     A heatmap head at 1/8 resolution and a soft-argmax; the heatmap conv
-    keeps fp32 weights and computes in fp32 whatever the config's dtype."""
+    keeps fp32 weights and computes in fp32 whatever the config's dtype.
+    param_dtype: the other weights' storage dtype (default the compute
+    dtype); the landmark trainer keeps fp32 weights, as flax does."""
 
-    def __init__(self, config: LandmarkNetConfig = LandmarkNetConfig(), device=None):
+    def __init__(self, config: LandmarkNetConfig = LandmarkNetConfig(), device=None,
+                 param_dtype=None):
         super().__init__()
         self.config = config
         dt, w = config.dtype, config.widths
         cins = (3,) + tuple(w[:-1])
         for i, (cin, cout) in enumerate(zip(cins, w)):
-            setattr(self, f"block_{i}", _Block(cin, cout, dt, device))
-        self.fuse = Conv2d(w[-1] + w[2], w[-1], 3, padding=1, dtype=dt, device=device)
+            setattr(self, f"block_{i}", _Block(cin, cout, dt, device, param_dtype))
+        self.fuse = Conv2d(w[-1] + w[2], w[-1], 3, padding=1, dtype=dt,
+                           param_dtype=param_dtype, device=device)
         self.fuse_norm = GroupNorm32(w[-1], num_groups=8, device=device)
         self.heat = Conv2d(w[-1], config.num_points, 1, dtype=torch.float32,
                            device=device)

@@ -8,7 +8,8 @@ dispatch; with VAEConfig.remat (training through the decoder), or for one
 call with `decode(z, for_grad=True)` (the guided sampler's gradient through
 a serving VAE), the decoder's runs the differentiable FlashAttention instead
 (the residual K2 forward, K4/K5 in the backward) and its blocks are
-rematerialised. The 0.18215 latent scale is applied by the caller.
+rematerialised; `encode(x, for_grad=True)` (the VAE trainer) sends the
+encoder's to FlashAttention too, and every other encode runs K2. The 0.18215 latent scale is applied by the caller.
 VAEConfig.quant "int8" or "int8conv" (the same here: the VAE has no dense
 site) runs the ResnetBlocks' conv1, conv2 and nin_shortcut int8
 (ops/quant.py); the mid-block attention, stem, head and up/downsampling
@@ -55,9 +56,9 @@ class VAEConfig:
 
 class ResnetBlock(nn.Module):
     def __init__(self, channels: int, out_channels: int, dtype=torch.float32,
-                 quant: str = "none", device=None):
+                 quant: str = "none", device=None, param_dtype=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device, quant=quant)
+        kw = dict(dtype=dtype, device=device, quant=quant, param_dtype=param_dtype)
         self.norm1 = GroupNorm32(channels, eps=1e-6, device=device)
         self.conv1 = Conv2d(channels, out_channels, 3, padding=1, **kw)
         self.norm2 = GroupNorm32(out_channels, eps=1e-6, device=device)
@@ -83,10 +84,10 @@ class AttnBlock(nn.Module):
     launches the same kernel in its first pass and in its recomputation."""
 
     def __init__(self, channels: int, dtype=torch.float32, device=None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", param_dtype=None):
         super().__init__()
         self.attn_impl = attn_impl
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.norm = GroupNorm32(channels, eps=1e-6, device=device)
         self.q = Conv2d(channels, channels, 1, **kw)
         self.k = Conv2d(channels, channels, 1, **kw)
@@ -106,9 +107,9 @@ class AttnBlock(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 conv with SD's asymmetric (0,1)x(0,1) padding."""
 
-    def __init__(self, channels: int, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, dtype=torch.float32, device=None, param_dtype=None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2, dtype=dtype,
+        self.conv = Conv2d(channels, channels, 3, stride=2, dtype=dtype, param_dtype=param_dtype,
                            device=device)
 
     def forward(self, x):
@@ -128,10 +129,10 @@ def _run_mid(mid, h, call=lambda layer, x: layer(x), impl: str | None = None):
 
 
 class Encoder(nn.Module):
-    def __init__(self, config: VAEConfig = VAEConfig(), device=None):
+    def __init__(self, config: VAEConfig = VAEConfig(), device=None, param_dtype=None):
         super().__init__()
         cfg = self.config = config
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=device, param_dtype=param_dtype)
         self.conv_in = Conv2d(3, cfg.ch, 3, padding=1, **kw)
         self.down = nn.ModuleList()
         block_in = cfg.ch
@@ -150,22 +151,25 @@ class Encoder(nn.Module):
         out_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, **kw)
 
-    def forward(self, x):
+    def forward(self, x, for_grad: bool = False):
+        """for_grad: built for a backward through this call: the mid-block
+        runs FlashAttention, not K2 (the encoder is not rematerialised, as
+        the JAX package's is not)."""
         h = self.conv_in(x.to(self.config.dtype))
         for level in self.down:
             for blk in level.block:
                 h = blk(h)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
-        h = _run_mid(self.mid, h)
+        h = _run_mid(self.mid, h, impl="flash" if for_grad else None)
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
-    def __init__(self, config: VAEConfig = VAEConfig(), device=None):
+    def __init__(self, config: VAEConfig = VAEConfig(), device=None, param_dtype=None):
         super().__init__()
         cfg = self.config = config
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=device, param_dtype=param_dtype)
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1, **kw)
         self.mid = _mid(block_in, kw, cfg.quant,
@@ -185,10 +189,13 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm32(block_in, eps=1e-6, device=device)
         self.conv_out = Conv2d(block_in, cfg.out_ch, 3, padding=1, **kw)
 
-    def forward(self, z, for_grad: bool = False):
+    def forward(self, z, for_grad: bool = False, features: bool = False):
         """for_grad: built for a backward through this call, as with
         VAEConfig.remat: FlashAttention where the block would run K2, and
-        per-block remat while gradients are recorded (as nn/unet.py)."""
+        per-block remat while gradients are recorded (as nn/unet.py).
+        features: return (out, h), h the penultimate activations (conv_out's
+        input, in the compute dtype): the VAE trainer's adaptive weight
+        differentiates with respect to the last layer alone."""
         grad_route = self.config.remat or for_grad
         remat = grad_route and torch.is_grad_enabled()
         call = (lambda layer, x: checkpoint(layer, x, use_reentrant=False)) \
@@ -201,27 +208,35 @@ class Decoder(nn.Module):
                 h = call(blk, h)
             if hasattr(level, "upsample"):
                 h = call(level.upsample, h)
-        return self.conv_out(F.silu(self.norm_out(h))).float()
+        h = F.silu(self.norm_out(h))
+        out = self.conv_out(h).float()
+        return (out, h) if features else out
 
 
 class AutoencoderKL(nn.Module):
-    """encode(x) -> DiagonalGaussian over 4-ch latents; decode(z) -> image."""
+    """encode(x) -> DiagonalGaussian over 4-ch latents; decode(z) -> image.
 
-    def __init__(self, config: VAEConfig = VAEConfig(), device=None):
+    param_dtype: the weights' storage dtype (default the compute dtype); the
+    VAE trainer keeps fp32 weights, as flax does, computing in cfg.dtype."""
+
+    def __init__(self, config: VAEConfig = VAEConfig(), device=None, param_dtype=None):
         super().__init__()
         check_quant(config.quant)
         self.config = config
-        self.encoder = Encoder(config, device=device)
-        self.decoder = Decoder(config, device=device)
+        self.encoder = Encoder(config, device=device, param_dtype=param_dtype)
+        self.decoder = Decoder(config, device=device, param_dtype=param_dtype)
         zc = 2 * config.embed_dim if config.double_z else config.embed_dim
         zin = 2 * config.z_channels if config.double_z else config.z_channels
-        kw = dict(dtype=config.dtype, device=device)
+        kw = dict(dtype=config.dtype, device=device, param_dtype=param_dtype)
         self.quant_conv = Conv2d(zin, zc, 1, **kw)
         self.post_quant_conv = Conv2d(config.embed_dim, config.z_channels, 1, **kw)
 
-    def encode(self, x) -> DiagonalGaussian:
-        moments = self.quant_conv(self.encoder(x)).float()
+    def encode(self, x, for_grad: bool = False) -> DiagonalGaussian:
+        """for_grad: the encoder's mid-block through FlashAttention (the
+        residual K2 forward, K4/K5 in the backward), for a backward through
+        this call (the VAE trainer); else K2, which has none."""
+        moments = self.quant_conv(self.encoder(x, for_grad)).float()
         return DiagonalGaussian.from_moments(moments, dim=1)
 
-    def decode(self, z, for_grad: bool = False):
-        return self.decoder(self.post_quant_conv(z), for_grad)
+    def decode(self, z, for_grad: bool = False, features: bool = False):
+        return self.decoder(self.post_quant_conv(z), for_grad, features)

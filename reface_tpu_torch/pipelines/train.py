@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -65,7 +66,7 @@ from reface_tpu_torch.pipelines.swap import (
 )
 
 __all__ = ["TrainConfig", "ReconLossConfig", "TrainState", "TrainModules",
-           "AdamW", "make_optimizer", "trainable_labels", "named_params", "make_draws",
+           "AdamW", "make_optimizer", "cosine_decay_schedule", "trainable_labels", "named_params", "make_draws",
            "resolve_train_swap_cfg", "make_train_step", "params_with_ema"]
 
 
@@ -160,34 +161,53 @@ def _fp32(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.float32))
 
 
+def cosine_decay_schedule(init: float, decay_steps: int, alpha: float = 0.0):
+    """optax.cosine_decay_schedule: init * ((1 - alpha) * (1 + cos(pi * c / n))
+    / 2 + alpha) at c = min(count, n), in fp32 as optax computes it."""
+    def lr(count):
+        c = torch.tensor(min(count, decay_steps), dtype=torch.float32)
+        cos = 0.5 * (1.0 + torch.cos(torch.tensor(math.pi, dtype=torch.float32) * c
+                                     / decay_steps))
+        return float(init * ((1.0 - alpha) * cos + alpha))
+    return lr
+
+
 class AdamW:
-    """optax.adamw(linear warmup, weight_decay, mu_dtype) over the trainable
-    parameters, wrapped as the JAX package's make_optimizer wraps it:
-    clip_by_global_norm before it (grad_clip), optax.MultiSteps around it
+    """optax's Adam family over the parameters it is given, written with
+    torch._foreach_* ops: scale_by_adam(b1, b2, eps, mu_dtype), then
+    add_decayed_weights(weight_decay) (0: plain optax.adam), then the learning
+    rate `lr` (a float, or a schedule of the update count), optionally
+    behind clip_by_global_norm (grad_clip) and inside optax.MultiSteps
     (accumulate > 1: the running mean of the gradients, one update every
-    `accumulate` calls). Frozen parameters are never touched (set_to_zero).
+    `accumulate` calls). The trainers build it through make_optimizer (the
+    JAX package's adamw with warmup over the trainable parameters),
+    cli/distill.py (adam at a constant rate), diffusion/vae_loss.py (adam,
+    b1 = 0.5, b2 = 0.9) and cli/train_landmarks.py (adamw under a cosine
+    decay).
 
     `step(grads)` updates the parameters and the moments in place; a None
     gradient counts as zeros, as JAX's gradient of an unused leaf is.
     """
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    eps = 1e-8
 
-    def __init__(self, params: dict[str, torch.Tensor], cfg: TrainConfig):
-        labels = trainable_labels(params)
-        self.names = [k for k in params if labels[k] == "train"]
+    def __init__(self, params: dict[str, torch.Tensor], lr, b1: float = 0.9,
+                 b2: float = 0.999, weight_decay: float = 0.0,
+                 grad_clip: Optional[float] = None, accumulate: int = 1,
+                 mu_dtype: Optional[str] = None):
+        self.names = list(params)
         self.params = [params[k] for k in self.names]
-        self.lr = _linear_schedule(cfg.learning_rate * 1e-6, cfg.learning_rate,
-                                   cfg.warmup_steps)
-        self.weight_decay = cfg.weight_decay
-        self.grad_clip = cfg.grad_clip
-        self.accumulate = cfg.accumulate
-        mu_dtype = _DTYPES[cfg.mu_dtype] if cfg.mu_dtype else None
+        self.lr = lr if callable(lr) else (lambda count: lr)
+        self.b1, self.b2 = b1, b2
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip
+        self.accumulate = accumulate
+        mu_dtype = _DTYPES[mu_dtype] if mu_dtype else None
         with torch.no_grad():
             self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
             self.acc = ([torch.zeros_like(p) for p in self.params]
-                        if cfg.accumulate > 1 else None)
+                        if accumulate > 1 else None)
         self.count = 0  # updates applied: Adam's count and the schedule's step
         self.mini_step = 0  # MultiSteps' position inside an accumulation
 
@@ -216,8 +236,8 @@ class AdamW:
         self.count += 1
         b1, b2 = self.b1, self.b2
         # mu = (1 - b1) g + b1 mu in fp32, stored in the moment's dtype. With
-        # a bf16 moment, optax's weak-typed b1 is rounded to bf16 (0.8984375),
-        # as the JAX package's jitted step computes it.
+        # a bf16 moment, optax's weak-typed b1 is rounded to bf16 (0.9 ->
+        # 0.8984375), as the JAX package's jitted step computes it.
         if self.mu[0].dtype == torch.float32:
             torch._foreach_mul_(self.mu, b1)
             torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
@@ -236,7 +256,8 @@ class AdamW:
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
         del denom
-        torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
+        if self.weight_decay:
+            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
         if mu is not self.mu:
             for m, m32 in zip(self.mu, mu):
@@ -247,8 +268,15 @@ class AdamW:
 
 
 def make_optimizer(cfg: TrainConfig, params: dict[str, torch.Tensor]) -> AdamW:
-    """The JAX package's make_optimizer over name -> parameter."""
-    return AdamW(params, cfg)
+    """The JAX package's make_optimizer over name -> parameter: optax.adamw
+    with a linear warmup over the trainable parameters (frozen ones are
+    never touched: set_to_zero), clipping and MultiSteps as configured."""
+    labels = trainable_labels(params)
+    return AdamW({k: p for k, p in params.items() if labels[k] == "train"},
+                 lr=_linear_schedule(cfg.learning_rate * 1e-6, cfg.learning_rate,
+                                     cfg.warmup_steps),
+                 weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip,
+                 accumulate=cfg.accumulate, mu_dtype=cfg.mu_dtype)
 
 
 # ---------------------------------------------------------------- the step

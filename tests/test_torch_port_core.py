@@ -112,7 +112,11 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.data.ffhq, reface_tpu_torch.data.synthetic, "
         "reface_tpu_torch.ckpt.io, reface_tpu_torch.core.profiling, "
         "reface_tpu_torch.diffusion.guidance, reface_tpu_torch.diffusion.ddim_guided, "
-        "reface_tpu_torch.preprocess.tps, reface_tpu_torch.preprocess.priors\n"
+        "reface_tpu_torch.preprocess.tps, reface_tpu_torch.preprocess.priors, "
+        "reface_tpu_torch.diffusion.distill, reface_tpu_torch.cli.distill, "
+        "reface_tpu_torch.diffusion.vae_loss, reface_tpu_torch.nn.discriminator, "
+        "reface_tpu_torch.cli.train_vae, reface_tpu_torch.cli.train_landmarks, "
+        "reface_tpu_torch.data.raster\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
