@@ -163,19 +163,24 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      are on disk at once, and every file is deleted at the end;
   14. (run after phase 12) the gradient-guided swap and the priors on phase
      3's towers: FaceSwapper.swap_guided at batch 2, DDIM-50, CFG 3 with the
-     ID term (one warm-up, one timed request; the gradient at the 24 steps
-     with 5 < t < 500), its launches by wrapper and shape against the plan
+     ID term (one warm-up, then one request twice with the same seed, the
+     two bit-equal; the gradient at the 24 steps with 5 < t < 500), its
+     launches by wrapper and shape against the plan
      from the config (K2r, K4 and K5 at (2,4096,4096,512) once a gated
      step, K2 only for the encode and the final decode); one guided step by
      CUDA events (the CFG eps, the guidance gradient, the decode's forward
      and backward); guidance scale 0 against FaceSwapper.swap; one step's
      ID loss and latent gradient against attn_impl="einsum" (phase 7's
      limits); a request with id, seg and exp (fp32 BiSeNet and D3DFR files
-     written as the reference's; one decode a step at all 50 steps); DIFT's
+     written as the reference's; one decode a step at all 50 steps) twice
+     with the same seed, bit-equal; per term, one guided step's gradient
+     under torch.use_deterministic_algorithms(True, warn_only=True) (what it
+     flags is printed) and three such gradients bit-equal; DIFT's
      index agreement between bf16 and fp32 features; the tiny fp32 guided
      swap on the card against the CPU port; cli.swap --guidance id,seg,exp
-     --precropped and raw (DDIM-10), each within one level of its direct
-     call; cli.prepare_data make-priors --method tps (a LandmarkNet file)
+     --precropped and raw (DDIM-10), each run twice with the same seed, the
+     two files bit-equal and within one level of its direct call;
+     cli.prepare_data make-priors --method tps (a LandmarkNet file)
      and dift (the towers' params file) on a CelebA-style tree of 4 pairs
      at 512 px, each prior the target outside its mask, seconds a pair;
      cli.inference_test_bench --prior-dir on the DIFT priors within one
@@ -191,7 +196,8 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      teacher and the frozen towers bit-identical, each step's launches by
      wrapper and shape against distill_step_plan, manifest.json; the
      teacher window's end, and one step's loss and student gradient with the
-     student's attention, against einsum (phase 7's limits) and the
+     student's attention, against einsum (phase 7's limits), the same step
+     on fp32 copies of both UNets against einsum (ROADMAP C3), and the
      teacher window's share of a step by CUDA events; cli.swap
      --precropped --ckpt <out>/params.pt --ddim-steps 10 --scale 1.0 within
      one level of FaceSwapper.swap on the same weights; two tiny fp32
@@ -210,7 +216,23 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      the file read back by build_raw_pipeline's --landmark-ckpt. K2 at
      (4,1024,1024,512), K2r, K4 and K5 there and at the teacher's
      (64,4096,4096,40) and (64,1024,1024,80) against their plain versions,
-     timed beside their bounds and sdpa. The files are deleted at the end.
+     timed beside their bounds and sdpa. The files are deleted at the end;
+  16. (run after phase 15) the video driver on phase 3's towers:
+     cli.video_swap with the RawPipelineConfig() pipeline (BiSeNet and
+     LandmarkNet files) over a 24-frame 1080 x 1920 MJPEG AVI the port
+     writes (faces drawn from the landmark template; 4 frames without one,
+     read from the frames as phase 10 forces its pattern), in its batches of
+     10 at its DDIM-30 default, the last batch of 4 padded; its PNG frames
+     within one level of swap_images_robust called directly batch by batch
+     with the same generator, inv_transforms.npy within 1e-3 px of the
+     quads; frame 0 passed through, each frame without a face its last good
+     frame's swap (its quad, its pixels outside the paste); swapped.avi of
+     24 frames at 25 fps; K1 and K2 by shape against 3 x the batch-10 plan
+     (31 UNet forwards a batch); the --bench-json frames/s, and again with
+     --bench-ram (frames decoded before the clock, no writer), peak
+     memory, and whether the host has
+     ffmpeg (if it has, swapped.mp4 is written). The files are deleted at
+     the end.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
 ...}. Any failure exits non-zero before that line; without a CUDA device it
@@ -232,6 +254,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2917,6 +2940,59 @@ def write_prior_tree(d: Path) -> dict:
     return {"bench": tb}
 
 
+def guidance_determinism(swapper, towers) -> dict:
+    """ROADMAP C1's probe, one guided step's gradient per term (id, seg,
+    exp; t = 261): what torch.use_deterministic_algorithms(True,
+    warn_only=True) flags on its path, and whether three gradients, taken
+    as the guided sampler takes them (cuDNN's deterministic algorithms for
+    this gradient alone), are bit-equal."""
+    import warnings
+
+    from reface_tpu_torch.diffusion.ddim_guided import deterministic_cudnn
+    from reface_tpu_torch.diffusion.guidance import (
+        combine_guidance,
+        make_expression_guidance,
+        make_id_guidance,
+        make_seg_guidance,
+    )
+
+    cfg = swapper.config
+    req = make_request(22, cfg.image_size, DEV)
+    target, ref, mask = (nchw(req[k]) for k in ("target_image", "ref_clip224", "inpaint_mask"))
+    decode = functools.partial(swapper.decode_latent, for_grad=True)
+    r3 = lambda a: torch.as_tensor(a, device=DEV).reshape(1, 3, 1, 1)
+    terms = {
+        "id": make_id_guidance(decode, swapper.embed_id,
+                               (ref * r3(CLIP_STD) + r3(CLIP_MEAN)) * 2.0 - 1.0,
+                               inpaint_region=1.0 - mask),
+        "seg": make_seg_guidance(decode, towers[0], target),
+        "exp": make_expression_guidance(decode, towers[1], target, inpaint_region=1.0 - mask)}
+    g = torch.Generator(device=DEV).manual_seed(22)
+    x = torch.randn((BATCH, 4, cfg.latent_size, cfg.latent_size), generator=g, device=DEV)
+    out = {}
+    for name, term in terms.items():
+        loss_fn = combine_guidance(term)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with deterministic_cudnn():
+                    loss_and_grad(loss_fn, x, 261)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        flags = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+        with deterministic_cudnn():
+            grads = [loss_and_grad(loss_fn, x, 261)[1] for _ in range(3)]
+        same = all(torch.equal(grads[0], gi) for gi in grads[1:])
+        out[name] = {"flagged": flags, "grads_bit_equal": same}
+        print(f"  C1 probe, one guided step's gradient ({name}): use_deterministic_algorithms "
+              f"flags {flags or 'nothing'}; three gradients bit-equal {same}", flush=True)
+        if not same:
+            fail(f"the {name} guidance gradient is not reproducible (ROADMAP C1)")
+    return out
+
+
 def guided_path(cpu_params: dict, smi: str, gen) -> dict:
     """Phase 14: the gradient-guided swap and the priors on phase 3's towers.
     Returns its stats; each run's launches are held by wrapper and shape to
@@ -2934,21 +3010,29 @@ def guided_path(cpu_params: dict, smi: str, gen) -> dict:
 
         # (a) the ID-guided request: one warm-up, one timed
         plan = guided_plan(cfg, ("id",), BATCH)
-        lat = []
-        for r in range(2):
+        lat, outs = [], []
+        for r in (10, 11, 11):  # a warm-up, then one request twice with the same seed
             reset_counts()  # the guided path's run starts here
             torch.cuda.reset_peak_memory_stats()
-            out, secs, got = guided_request(swapper, 10 + r, ("id",))
+            out, secs, got = guided_request(swapper, r, ("id",))
             launches = check_plan(f"guided request {r}", got, plan)
             lat.append(secs)
+            outs.append(out)
         peak = torch.cuda.max_memory_allocated()
         n_id = guided_steps(cfg, ("id",))
+        same = torch.equal(outs[1], outs[2])
         print(f"  {smi}: swap_guided(guidance=('id',)), batch {BATCH}, DDIM-{cfg.ddim_steps}, "
-              f"CFG {cfg.cfg_scale}: first {lat[0]:.3f} s, timed {lat[1]:.3f} s, peak "
-              f"{peak / 2**30:.2f} GiB; launches {launches} (as planned by shape: the gradient "
-              f"at the {n_id} steps with 5 < t < 500)", flush=True)
-        stats["id"] = {"first_s": lat[0], "timed_s": lat[1], "peak_gib": peak / 2**30,
-                       "launches": launches, "guided_steps": n_id}
+              f"CFG {cfg.cfg_scale}: first {lat[0]:.3f} s, timed {lat[1]:.3f} s and "
+              f"{lat[2]:.3f} s, peak {peak / 2**30:.2f} GiB; the two timed requests (one seed) "
+              f"bit-equal {same} (max abs {(outs[1] - outs[2]).abs().max().item():.3e}); "
+              f"launches {launches} (as planned by shape: the gradient at the {n_id} steps with "
+              f"5 < t < 500)", flush=True)
+        if not same:
+            fail("two ID-guided requests with the same seed differ (ROADMAP C1)")
+        stats["id"] = {"first_s": lat[0], "timed_s": lat[1], "again_s": lat[2],
+                       "peak_gib": peak / 2**30, "launches": launches, "guided_steps": n_id,
+                       "same_seed_bit_equal": same}
+        del outs
         stats["step"] = guided_step_breakdown(swapper)
 
         # (b) guidance scale 0 against FaceSwapper.swap on the same draws
@@ -2973,17 +3057,27 @@ def guided_path(cpu_params: dict, smi: str, gen) -> dict:
         args = argparse.Namespace(bisenet_ckpt=str(paths["bisenet"]),
                                   d3dfr_ckpt=str(paths["d3dfr"]))
         towers = cli_swap.guidance_towers(args, ALL_TERMS, torch.device(DEV))
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        out3, secs3, got = guided_request(swapper, 12, ALL_TERMS, towers)
-        launches3 = check_plan("guided request (id, seg, exp)", got,
-                               guided_plan(cfg, ALL_TERMS, BATCH))
+        out3, secs3 = [], []
+        for _ in range(2):  # the same request twice
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            o, sec, got = guided_request(swapper, 12, ALL_TERMS, towers)
+            launches3 = check_plan("guided request (id, seg, exp)", got,
+                                   guided_plan(cfg, ALL_TERMS, BATCH))
+            out3.append(o)
+            secs3.append(sec)
         peak3 = torch.cuda.max_memory_allocated()
+        same3 = torch.equal(out3[0], out3[1])
         print(f"  swap_guided(guidance=('id', 'seg', 'exp')) with fp32 BiSeNet (256 px) and "
-              f"D3DFR (224 px), batch {BATCH}: {secs3:.3f} s (first call of both towers), peak "
+              f"D3DFR (224 px), batch {BATCH}: {secs3[0]:.3f} s (first call of both towers), "
+              f"{secs3[1]:.3f} s again with the same seed, bit-equal {same3}; peak "
               f"{peak3 / 2**30:.2f} GiB; launches {launches3} (as planned: one decode a step at "
               f"all {cfg.ddim_steps} steps)", flush=True)
-        stats["id_seg_exp"] = {"s": secs3, "peak_gib": peak3 / 2**30, "launches": launches3}
+        if not same3:
+            fail("two id, seg, exp guided requests with the same seed differ (ROADMAP C1)")
+        stats["id_seg_exp"] = {"s": secs3[0], "again_s": secs3[1], "peak_gib": peak3 / 2**30,
+                               "launches": launches3, "same_seed_bit_equal": same3}
+        stats["determinism"] = guidance_determinism(swapper, towers)
         del out3, towers
 
         # (e) DIFT's correspondence, bf16 against fp32 features, on one pair
@@ -3036,36 +3130,37 @@ def guided_path(cpu_params: dict, smi: str, gen) -> dict:
                     return pipe.swap_images(cli_swap._read01(str(d / tgt))[None],
                                             cli_swap._read01(str(d / src))[None],
                                             generator=g)[0].cpu().clamp(0, 1)
-            # twice: CUDA's backward of the resizes and pools sums with
-            # atomics, so two guided runs differ, and the guidance carries
-            # that through the chain
-            want, again = (direct(torch.Generator(device=DEV).manual_seed(5)) for _ in range(2))
-            spread = (want - again).abs().max().item()
+            want = direct(torch.Generator(device=DEV).manual_seed(5))
             del sw, direct
             if mode == "raw":
                 del pipe
             torch.cuda.empty_cache()
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            got = {}
-            with recorded_launches(got):
-                done = cli_swap.main(argv)
-            launches = check_plan(f"cli.swap --guidance ({mode})", got,
-                                  guided_plan(cfg10, ALL_TERMS, 1))
+            files, secs = [], []
+            for run in range(2):  # twice, the same seed
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                got = {}
+                with recorded_launches(got):
+                    done = cli_swap.main(argv)
+                launches = check_plan(f"cli.swap --guidance ({mode})", got,
+                                      guided_plan(cfg10, ALL_TERMS, 1))
+                files.append(images.imread(done[0][0]))
+                secs.append(done[0][1])
             peak = torch.cuda.max_memory_allocated()
-            img = torch.from_numpy(images.imread(done[0][0])).float() / 255
+            same = bool((files[0] == files[1]).all())
+            img = torch.from_numpy(files[0]).float() / 255
             diff = (img - want).abs().max().item()
-            limit = LEVEL + 2 * spread
             print(f"  cli.swap --guidance id,seg,exp ({mode}, DDIM-{GUIDED_CLI_STEPS}, batch 1): "
-                  f"{done[0][1]:.3f} s, peak {peak / 2**30:.2f} GiB, {tuple(img.shape)} within "
-                  f"{diff * 255:.3f} levels of the direct call (two direct calls differ by "
-                  f"{spread * 255:.3f}; limit one level plus twice that, {limit * 255:.3f}); "
-                  f"launches {launches} (as planned)", flush=True)
-            if diff > limit + 1e-6:
+                  f"{secs[0]:.3f} s and {secs[1]:.3f} s, the two files bit-equal {same}; peak "
+                  f"{peak / 2**30:.2f} GiB, {tuple(img.shape)} within {diff * 255:.3f} levels of "
+                  f"the direct call (limit 1); launches {launches} (as planned)", flush=True)
+            if not same:
+                fail(f"two cli.swap --guidance ({mode}) runs with the same seed differ (C1)")
+            if diff > LEVEL + 1e-6:
                 fail(f"cli.swap --guidance ({mode}) is {diff * 255:.3f} levels from the direct call")
-            stats[f"cli_{mode}"] = {"s": done[0][1], "peak_gib": peak / 2**30,
-                                    "levels_from_direct": diff * 255,
-                                    "levels_direct_twice": spread * 255, "launches": launches}
+            stats[f"cli_{mode}"] = {"s": secs[0], "again_s": secs[1], "peak_gib": peak / 2**30,
+                                    "levels_from_direct": diff * 255, "same_seed_bit_equal": same,
+                                    "launches": launches}
 
         # (h) make-priors, both methods, on PRIOR_PAIRS pairs at 512 px
         prior_flags = ["make-priors", "--target-dir", str(d / "targets"), "--source-dir",
@@ -4275,7 +4370,10 @@ TRAINER_TINY_TOL = {"loss": 1e-5, "weights": 1e-4, "grad": 1e-4}
 # the loss is the weighted MSE of the student's eps against a target close
 # to it, so a relative change of eps moves it by about twice that change
 # over the residual's relative size, where phase 7's MSE against the noise
-# does not amplify it (seen 2.3e-5 there).
+# does not amplify it (seen 2.3e-5 there). Measured since (ROADMAP C3): the
+# same step on fp32 copies of both UNets reads 7.85e-8 (loss) and 4.9e-7
+# (gradient), bf16 1.92e-4 in the same run (H100 80GB HBM3, 700 W): the
+# distance is bf16's rounding, not the kernels'.
 DISTILL_TOL = {"loss": 1e-3, "grad": 1e-2, "window": 1e-2}
 # The tiny VAE step's gradients: first held card vs CPU to 1e-4 (phase 7's
 # limit), they read 9.06e-4 at the encoder's conv_in (gate open) on the
@@ -4290,6 +4388,48 @@ DISTILL_TOL = {"loss": 1e-3, "grad": 1e-2, "window": 1e-2}
 # distance read on a CPU). The limits were set after those readings.
 VAE_TINY_FP64 = 2.0
 VAE_TINY_ABS = 2e-3
+
+
+# ROADMAP C3: the same distillation step, flash against einsum, on fp32
+# copies of the student and the teacher (the kernels' fp32 versions, TF32
+# off). Where the bf16 distance of the loss comes from bf16's rounding of
+# eps, amplified by the loss's form, it falls here to fp32's summation-order
+# distance: the loss within phase 7's tiny fp32 limit, the gradient within
+# phase 7's einsum limit.
+DISTILL_FP32_TOL = {"loss": 1e-5, "grad": TRAIN_TOL["grad"]}
+
+
+def distill_fp32_vs_einsum(student, teacher, loss_fn, inputs, draws) -> dict:
+    """One distillation step's loss and student gradient, the student's
+    attention flash against einsum (the teacher's flash), on fp32 copies of
+    both UNets with the same weights and inputs."""
+    copies = []
+    for unet in (student, teacher):
+        m = UNetModel(dataclasses.replace(unet.config, dtype=torch.float32), device=DEV)
+        m.load_state_dict(unet.state_dict())
+        copies.append(m.requires_grad_(unet is student))
+    s32, t32 = copies
+    inputs32 = tuple(t.float() for t in inputs)
+    params = list(s32.parameters())
+
+    def loss_and_grads():
+        loss, _ = loss_fn(s32, t32, *inputs32, draws)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.item(), {i: g.float() for i, g in enumerate(gs) if g is not None}
+
+    loss_f, g_f = loss_and_grads()
+    set_unet_attn(s32, "einsum")
+    loss_e, g_e = loss_and_grads()
+    rel_loss, rel_grad = abs(loss_f - loss_e) / abs(loss_e), rel_l2(g_f, g_e)
+    del copies, s32, t32, params, g_f, g_e
+    torch.cuda.empty_cache()
+    print(f"  ROADMAP C3, the same step on fp32 copies of the student and the teacher: loss "
+          f"{loss_f:.6f} vs {loss_e:.6f} (rel {rel_loss:.3e}, tol {DISTILL_FP32_TOL['loss']:.0e}),"
+          f" student gradient rel L2 {rel_grad:.3e} (tol {DISTILL_FP32_TOL['grad']:.0e})",
+          flush=True)
+    if not (rel_loss <= DISTILL_FP32_TOL["loss"] and rel_grad <= DISTILL_FP32_TOL["grad"]):
+        fail("the fp32 distillation step with flash attention disagrees with einsum")
+    return {"loss_rel": rel_loss, "grad_rel_l2": rel_grad}
 
 
 def distill_step_plan(batch: int, k: int) -> dict:
@@ -4526,7 +4666,9 @@ def distill_path(cpu_params: dict, d: Path, smi: str, gen) -> dict:
                          "teacher_window_rel_l2": rel_window},
                  teacher_window_ms=window_ms, step_ms=step_ms,
                  teacher_window_share=window_ms / step_ms)
-    del res, modules, teacher, params, g_f, g_e, inputs, teacher_seen, end_f, end_e
+    del g_f, g_e, end_f, end_e
+    stats["einsum_fp32"] = distill_fp32_vs_einsum(modules.unet, teacher, loss_fn, inputs, draws)
+    del res, modules, teacher, params, inputs, teacher_seen
     torch.cuda.empty_cache()
 
     # the student served: cli.swap --ckpt <out>/params.pt --ddim-steps 10
@@ -4873,6 +5015,178 @@ def trainers_path(cpu_params: dict, smi: str, gen) -> dict:
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------------ phase 16
+
+# The video driver (cli.video_swap) at SwapConfig() and RawPipelineConfig()
+# widths on phase 3's towers: an MJPEG AVI of VIDEO_FRAMES full-HD frames,
+# swapped in the driver's batches of 10 at its DDIM-30, the last batch
+# partial; the frames in VIDEO_NO_FACE hold no face (frame 0 passes
+# through; 10 takes frame 9's swap across a batch edge, 15 takes 14's, 22
+# takes 21's in the partial batch). Which frames hold a face is read from
+# the frames (the faces are lit, the empty frames dark), as phase 10 forces
+# its pattern: seeded random BiSeNet weights find no face to speak of.
+VIDEO_FRAMES, VIDEO_BATCH, VIDEO_STEPS = 24, 10, 30
+VIDEO_NO_FACE = (0, 10, 15, 22)
+VIDEO_FPS = 25.0
+
+
+def video_presence(self, target01, min_area_frac: float = 2e-3):
+    return torch.as_tensor(target01).float().mean(dim=(1, 2, 3)) > 0.3
+
+
+def write_video(path: Path) -> list:
+    """VIDEO_FRAMES 1080 x 1920 frames: a photo-like background panning 8
+    px a frame and, but in VIDEO_NO_FACE, a face of make_landmark_faces
+    (the face template under a similarity, drawn at 256 px) blown up to
+    960 px in the middle; the empty frames at a quarter of the light.
+    Written as the port's MJPEG AVI; returns the frames as decoded."""
+    from reface_tpu_torch.data import make_landmark_faces
+    from reface_tpu_torch.io.video import VideoWriter, read_frames
+
+    faces, _ = make_landmark_faces(VIDEO_FRAMES, size=256, seed=16)
+    h, w = FRAME_HW
+    bg = photo_like(160, h, w)
+    s = 8 * h // 9
+    top, left = (h - s) // 2, (w - s) // 2
+    with VideoWriter(path, VIDEO_FPS) as out:
+        for k in range(VIDEO_FRAMES):
+            f = np.roll(bg, 8 * k, axis=1)
+            if k in VIDEO_NO_FACE:
+                f //= 4
+            else:
+                f[top: top + s, left: left + s] = images.resize_linear(faces[k], s, s)
+            out.write(f)
+    frames, fps = read_frames(path)
+    lit = video_presence(None, torch.from_numpy(np.stack(frames)).float() / 255).tolist()
+    if fps != VIDEO_FPS or len(frames) != VIDEO_FRAMES or [
+            k for k, p in enumerate(lit) if not p] != list(VIDEO_NO_FACE):
+        fail(f"the test video: {len(frames)} frames at {fps} fps, faces {lit}")
+    return frames
+
+
+def video_path(cpu_params: dict, smi: str) -> dict:
+    """Phase 16: cli.video_swap on phase 3's towers against direct
+    swap_images_robust calls. Returns its stats."""
+    from reface_tpu_torch.cli import video_swap as cli_video
+
+    cfg = dataclasses.replace(SwapConfig(), ddim_steps=VIDEO_STEPS)
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_video"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    stats = {}
+    try:
+        paths = write_guidance_towers(d)
+        save_swap_params(d / "params.pt", cpu_params)
+        t0 = time.perf_counter()
+        frames = write_video(d / "in.avi")
+        images.imwrite(d / "source.png", photo_like(161, RAW_SIZE, RAW_SIZE))
+        print(f"  wrote a {VIDEO_FRAMES}-frame {FRAME_HW[1]}x{FRAME_HW[0]} MJPEG AVI "
+              f"({(d / 'in.avi').stat().st_size / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = d / "out"
+        argv = ["--video", str(d / "in.avi"), "--source", str(d / "source.png"), "--outdir",
+                str(out), "--ckpt", str(d / "params.pt"), "--bisenet-ckpt",
+                str(paths["bisenet"]), "--landmark-ckpt", str(paths["landmarks"]), "--seed", "5",
+                "--frames-dir", str(out / "frames"), "--bench-json"]
+        batches = -(-VIDEO_FRAMES // VIDEO_BATCH)
+        # 30 uniform DDIM steps are 31 timesteps (the reference's stride,
+        # 1000 // 30 = 33, from 0 to 990): a batch runs 31 UNet forwards
+        steps = len(DDIMTables.create(DiffusionSchedule.create(), VIDEO_STEPS, eta=cfg.eta,
+                                      method=cfg.ddim_discretize).timesteps)
+        one = guided_plan(dataclasses.replace(cfg, ddim_steps=steps), (), VIDEO_BATCH)
+        plan = {k: {sh: c * batches for sh, c in v.items()} for k, v in one.items()}
+        RawSwapPipeline.face_presence = video_presence
+        try:
+            reset_counts()  # the video path's run starts here
+            torch.cuda.reset_peak_memory_stats()
+            got = {}
+            t0 = time.perf_counter()
+            with recorded_launches(got):
+                res = cli_video.main(argv)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = check_plan("cli.video_swap", got, plan)
+            # the JAX driver's host-stage bypass: the frames decoded before
+            # the clock, no writer (the codecs' share of a batch)
+            got_ram = {}
+            with recorded_launches(got_ram):
+                ram = cli_video.main(argv[:argv.index("--frames-dir")] + ["--bench-ram"])
+            check_plan("cli.video_swap --bench-ram", got_ram, plan)
+
+            # the same video through swap_images_robust called directly: the
+            # driver's swapper and pipeline, batches padded as it pads them
+            args = cli_video.build_parser().parse_args(argv)
+            args.ddim_steps = VIDEO_STEPS
+            sw = cli_common.build_swapper(args)
+            pipe = cli_common.build_raw_pipeline(args, sw, RawPipelineConfig())
+            src = images.imread(d / "source.png").astype("float32")[None] / 255.0
+            src_b = np.repeat(src, VIDEO_BATCH, axis=0)
+            ref224 = pipe._source_reference(src_b)
+            gen = torch.Generator(device=DEV).manual_seed(5)
+            state, want, quads = None, [], []
+            for i in range(0, VIDEO_FRAMES, VIDEO_BATCH):
+                arr = np.stack(frames[i: i + VIDEO_BATCH]).astype("float32") / 255.0
+                n = len(arr)
+                arr = np.concatenate([arr, np.repeat(arr[-1:], VIDEO_BATCH - n, axis=0)])
+                o, state, q = pipe.swap_images_robust(arr, src_b, generator=gen, state=state,
+                                                      ref224=ref224)
+                want += list(np.clip(o[:n].cpu().numpy() * 255.0, 0, 255).astype("uint8"))
+                quads += list(q[:n])
+            del sw, pipe, ref224, state
+            torch.cuda.empty_cache()
+        finally:
+            del RawSwapPipeline.face_presence
+        from reface_tpu_torch.io.video import read_frames
+
+        outs, _ = read_frames(out / "frames")
+        avi, avi_fps = read_frames(out / "swapped.avi")
+        inv = np.load(out / "inv_transforms.npy")
+        levels = max(int(np.abs(a.astype(int) - b).max()) for a, b in zip(outs, want))
+        quad_err = float(np.abs(inv - np.stack(quads)).max())
+        fallback = []
+        for k in VIDEO_NO_FACE[1:]:  # each takes the frame before it
+            kept = (outs[k - 1] == frames[k - 1]).all(-1)
+            fallback.append(bool(np.array_equal(inv[k], inv[k - 1]) and 0 < kept.mean() < 1
+                                 and np.array_equal(outs[k][kept], frames[k - 1][kept])))
+        passed = bool(np.array_equal(outs[0], frames[0]))
+        swapped = [k for k in range(VIDEO_FRAMES) if not np.array_equal(outs[k], frames[k])]
+        ffmpeg = shutil.which("ffmpeg")
+        mp4 = res["mp4"] and Path(res["mp4"]).stat().st_size
+        bench = res["bench"]
+        print(f"  {smi}: cli.video_swap, {VIDEO_FRAMES} frames {FRAME_HW[1]}x{FRAME_HW[0]} in "
+              f"{batches} batches of {VIDEO_BATCH} (the last of {VIDEO_FRAMES % VIDEO_BATCH}), "
+              f"DDIM-{VIDEO_STEPS}: {wall:.1f} s of wall with the loads, batches "
+              f"{', '.join(f'{t:.2f}' for t in res['batch_s'])} s; steady "
+              f"{bench['value']} frames/s ({bench['metric']}), {ram['bench']['value']} "
+              f"frames/s with --bench-ram (batches "
+              f"{', '.join(f'{t:.2f}' for t in ram['batch_s'])} s); peak {peak / 2**30:.2f} GiB; "
+              f"launches {launches} (as planned by shape, {batches} x a batch-{VIDEO_BATCH} "
+              f"swap of {steps} UNet forwards)", flush=True)
+        print(f"  its frames within {levels} levels of direct swap_images_robust calls (limit "
+              f"1), the quads within {quad_err:.2e} px; frame 0 passed through {passed}; the "
+              f"frames without a face {list(VIDEO_NO_FACE[1:])} are their last good frame's "
+              f"swap (its quad, its pixels outside the paste) {fallback}; swapped.avi "
+              f"{len(avi)} frames at {avi_fps} fps; ffmpeg on the host: "
+              f"{ffmpeg or 'no'}{f', swapped.mp4 {mp4} bytes' if ffmpeg else ''}", flush=True)
+        if (levels > 1 or quad_err > 1e-3 or not passed or not all(fallback)
+                or len(swapped) != VIDEO_FRAMES - 1 or len(avi) != VIDEO_FRAMES
+                or avi_fps != VIDEO_FPS or res["frames"] != VIDEO_FRAMES
+                or ram["frames"] != VIDEO_FRAMES or bench["value"] is None
+                or ram["bench"]["value"] is None or (ffmpeg and not mp4)):
+            fail("cli.video_swap: its output is not the direct swap_images_robust's, the "
+                 "fallback or the pass-through is wrong, or a file is missing")
+        stats = {"frames": VIDEO_FRAMES, "batch": VIDEO_BATCH, "ddim_steps": VIDEO_STEPS,
+                 "wall_s_with_loads": wall, "batch_s": res["batch_s"],
+                 "steady_frames_per_s": bench["value"], "bench_json": bench,
+                 "bench_ram": ram["bench"], "bench_ram_batch_s": ram["batch_s"],
+                 "peak_gib": peak / 2**30, "launches": launches, "levels_from_direct": levels,
+                 "quad_max_err_px": quad_err, "fallback_ok": fallback, "ffmpeg": bool(ffmpeg),
+                 "mp4_bytes": mp4 or None}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return stats
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5018,10 +5332,20 @@ def main():
           f"open and closed; cli.train_landmarks at LandmarkNetConfig(), {LM_SIZE} px; the tiny "
           f"fp32 trainers card vs CPU", flush=True)
     trainer_stats = trainers_path(cpu_params, smi, gen)
-    del cpu_params
     torch.cuda.empty_cache()
     trainer_stats["wall_s"] = t15 = time.perf_counter() - t15
     print(f"  phase 15 took {t15:.1f} s of wall", flush=True)
+
+    t16 = time.perf_counter()
+    print(f"phase 16: the video driver on phase 3's towers: cli.video_swap over a "
+          f"{VIDEO_FRAMES}-frame {FRAME_HW[1]}x{FRAME_HW[0]} MJPEG AVI in batches of "
+          f"{VIDEO_BATCH}, DDIM-{VIDEO_STEPS}, against swap_images_robust called directly",
+          flush=True)
+    video_stats = video_path(cpu_params, smi)
+    del cpu_params
+    torch.cuda.empty_cache()
+    video_stats["wall_s"] = t16 = time.perf_counter() - t16
+    print(f"  phase 16 took {t16:.1f} s of wall", flush=True)
 
     print("phase 6: the training kernels against their plain versions on the card",
           flush=True)
@@ -5244,6 +5568,11 @@ def main():
                 row[what][str(list(shape))] = {"bound_by": by, **{k: st[k] for k in (
                     "ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms", "alone_ms")
                     if k in st}}
+    # phase 16: K1's and K2's launches in the video driver's run
+    for row, k in zip(rows[:2], KERNELS[:2]):
+        row["launches_video"] = {
+            f"cli.video_swap {VIDEO_FRAMES} frames, batch {VIDEO_BATCH}, DDIM-{VIDEO_STEPS}":
+            video_stats["launches"][k.__name__]}
     rows[1]["batch4"] = {k: b4_k2[k] for k in (
         "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     steady = lat[1:] or lat
@@ -5282,12 +5611,16 @@ def main():
           f"{trainer_stats['train_vae']['gate_open']['peak_gib']:.2f} GiB; cli.train_landmarks "
           f"{trainer_stats['train_landmarks']['val_px']:.2f} px held out (mean shape "
           f"{trainer_stats['train_landmarks']['mean_shape_px']:.2f}), phase 15 "
-          f"{trainer_stats['wall_s']:.1f} s; wall {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{trainer_stats['wall_s']:.1f} s; cli.video_swap (batch {VIDEO_BATCH}, "
+          f"DDIM-{VIDEO_STEPS}) {video_stats['steady_frames_per_s']} frames/s, peak "
+          f"{video_stats['peak_gib']:.2f} GiB, phase 16 {video_stats['wall_s']:.1f} s; wall "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
                       "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
                       "zero_tile": zero_tile, "drivers": driver_stats,
                       "test_bench": bench_stats, "train_cli": cli_stats,
-                      "guided": guided_stats, "trainers": trainer_stats}), flush=True)
+                      "guided": guided_stats, "trainers": trainer_stats,
+                      "video": video_stats}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,4 +1,4 @@
-from reface_tpu_torch.core.distributions import DiagonalGaussian
+from reface_tpu_torch.core.distributions import DiagonalGaussian, normal_kl
 from reface_tpu_torch.core.schedules import (
     DDIMTables,
     DiffusionSchedule,
@@ -13,5 +13,6 @@ __all__ = [
     "DiffusionSchedule",
     "make_beta_schedule",
     "make_ddim_timesteps",
+    "normal_kl",
     "timestep_embedding",
 ]

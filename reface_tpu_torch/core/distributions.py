@@ -7,7 +7,7 @@ import math
 
 import torch
 
-__all__ = ["DiagonalGaussian"]
+__all__ = ["DiagonalGaussian", "normal_kl"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,3 +59,10 @@ class DiagonalGaussian:
         dims = tuple(range(1, self.mean.ndim))
         return 0.5 * torch.sum(logtwopi + self.logvar + (sample - self.mean) ** 2 / self.var,
                                dim=dims)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal gaussians, elementwise."""
+    exp = lambda a: torch.exp(torch.as_tensor(a))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * exp(-logvar2))

@@ -15,7 +15,7 @@ import torch
 
 from reface_tpu_torch.core.schedules import DDIMTables
 
-__all__ = ["ddim_sample", "ddim_step", "cfg_eps"]
+__all__ = ["ddim_sample", "ddim_step", "cfg_eps", "stochastic_encode"]
 
 # model_fn(x9: (B,9,H,W), t: (B,) int, context: (B,T,768)) -> eps (B,4,H,W)
 ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -100,3 +100,22 @@ def ddim_sample(
                                 dtype=x.dtype)
         x, _ = ddim_step(x, eps, alphas[i], alphas_prev[i], s1m[i], sigmas[i], noise)
     return x
+
+
+def stochastic_encode(x0: torch.Tensor, t, tables: DDIMTables,
+                      generator: torch.Generator | None = None,
+                      noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Noise x0 to DDIM step index t (the reference's img2img encode,
+    ddim.py:572-585, table alphas): sqrt(a_t) x0 + sqrt(1 - a_t) noise.
+
+    t indexes the DDIM subset (0..S-1), not raw DDPM timesteps, one per
+    sample or a scalar. The noise is `noise` where given (a test hands in
+    the JAX key's draw), else drawn from `generator`.
+    """
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    t = torch.as_tensor(t, device=x0.device).long()
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    a = torch.sqrt(tables.alphas.to(x0.device))[t].reshape(shape)
+    s = tables.sqrt_one_minus_alphas.to(x0.device)[t].reshape(shape)
+    return a * x0 + s * noise.to(x0.dtype)

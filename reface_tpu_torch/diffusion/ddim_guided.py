@@ -10,10 +10,17 @@ pred_x0 = (x - sqrt(1 - a_t) eps) / sqrt(a_t), the towers' weights frozen.
 Where the loss function says it is inactive at t (`active(t)`, the ID
 term's gate), its gradient is zero and the step skips the decode and the
 backward: eps is left as it is, as JAX adds its exact zero.
+
+The guidance gradient is reproducible run to run: the pools and resizes on
+its path are fixed-order products (ops/separable.py), and cuDNN is asked
+for deterministic convolution algorithms for this gradient alone
+(`deterministic_cudnn`): its default backward-data algorithms for the
+BiSeNet and D3DFR towers' convs sum in a varying order on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -21,7 +28,19 @@ import torch
 from reface_tpu_torch.core.schedules import DDIMTables
 from reface_tpu_torch.diffusion.ddim import ModelFn, cfg_eps, ddim_step
 
-__all__ = ["guided_ddim_sample"]
+__all__ = ["guided_ddim_sample", "deterministic_cudnn"]
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms inside the block only;
+    the caller's setting is put back after it."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def guided_ddim_sample(
@@ -66,7 +85,7 @@ def guided_ddim_sample(
             else:
                 eps = model_fn(x9, tb, context)
         if guidance_scale != 0.0 and active(t):
-            with torch.enable_grad():
+            with torch.enable_grad(), deterministic_cudnn():
                 xx = x.detach().requires_grad_(True)
                 pred_x0 = (xx - s1m[i] * eps) / torch.sqrt(alphas[i])
                 (grad,) = torch.autograd.grad(guidance_loss_fn(pred_x0, t), xx)

@@ -14,10 +14,11 @@ the same pixels:
     are parsed and inflated here (zlib); the unfilter is C++. A colour PNG
     read as gray uses libpng's rgb_to_gray with cv2's 0.299/0.587 weights
     (no gAMA handling: a file with a gAMA chunk may differ by a level).
-  - JPEG: baseline and extended-sequential Huffman, 8-bit, 4:4:4, 4:2:2,
-    4:2:0 and gray, restart markers, with libjpeg's ISLOW IDCT, fancy
-    upsampling and YCbCr tables (native/image_codec.cpp). Progressive and
-    arithmetic-coded files raise ValueError (ROADMAP A9c).
+  - JPEG: baseline, extended-sequential and progressive Huffman (spectral
+    selection and successive approximation), 8-bit, 4:4:4, 4:2:2, 4:2:0
+    and gray, restart markers, with libjpeg's ISLOW IDCT, fancy upsampling
+    and YCbCr tables (native/image_codec.cpp). Arithmetic-coded files raise
+    ValueError (ROADMAP A9d).
 - `imencode` / `imwrite` write PNG (8-bit, Sub-filtered rows, zlib level 1,
   cv2's default compression) and baseline JPEG at cv2's defaults (quality
   95, 4:2:0, the standard tables), chosen by the extension.
@@ -50,8 +51,7 @@ __all__ = ["imdecode", "imread", "imencode", "imwrite", "resize_linear",
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _JPEG_ERRORS = {
     -1: "corrupt JPEG data",
-    -2: "progressive JPEG is not supported yet (ROADMAP A9c)",
-    -3: "arithmetic-coded JPEG is not supported yet (ROADMAP A9c)",
+    -3: "arithmetic-coded JPEG is not supported yet (ROADMAP A9d)",
     -4: "unsupported JPEG (lossless, hierarchical, 12-bit, CMYK or a "
         "sampling layout libjpeg would not upsample)",
     -5: "truncated JPEG",

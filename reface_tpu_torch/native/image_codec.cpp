@@ -3,11 +3,17 @@
 //
 //   - PNG: the row unfilter (None, Sub, Up, Average, Paeth). The Python side
 //     parses the chunks, inflates with zlib and lays out the samples.
-//   - Baseline JPEG decode (SOF0/SOF1, Huffman, 8-bit, restart markers):
-//     libjpeg's integer ISLOW IDCT, its "fancy" triangle upsampling (h2v1,
-//     h1v2, h2v2), its YCbCr -> RGB tables and its range limit, so that the
-//     pixels are those of libjpeg-turbo (cv2.imdecode) with its defaults.
-//     Progressive and arithmetic-coded files are refused with their own codes.
+//   - JPEG decode, baseline and extended sequential (SOF0/SOF1) and
+//     progressive (SOF2: spectral selection and successive approximation,
+//     DC and AC first and refinement scans, EOB runs, as libjpeg's
+//     jdphuff.c), Huffman, 8-bit, restart markers: libjpeg's integer ISLOW
+//     IDCT, its "fancy" triangle upsampling (h2v1, h1v2, h2v2), its YCbCr ->
+//     RGB tables and its range limit, so that the pixels are those of
+//     libjpeg-turbo (cv2.imdecode) with its defaults. A progressive file is
+//     read whole into its coefficients before the IDCT, as libjpeg reads it
+//     for a full decode; libjpeg's block smoothing, which it applies only
+//     while some coefficient is still partly sent, is not done.
+//     Arithmetic-coded files are refused with their own code.
 //   - Baseline JPEG encode: RGB -> YCbCr with libjpeg's integer tables, 4:2:0
 //     by libjpeg's alternating-bias 2x2 average, the Annex K tables scaled by
 //     libjpeg's quality rule, the Annex K Huffman tables.
@@ -37,7 +43,6 @@ inline uint8_t paeth(int a, int b, int c) {
 
 enum {
   kErrCorrupt = -1,
-  kErrProgressive = -2,
   kErrArithmetic = -3,
   kErrUnsupported = -4,
   kErrTruncated = -5,
@@ -293,6 +298,87 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
   }
 }
 
+// Progressive scans (libjpeg's jdphuff.c), one block's coefficients in
+// natural order. A DC scan: the first codes the difference from the
+// predictor, scaled by 2^Al; a refinement adds bit Al of every DC value.
+void decode_dc_progressive(BitReader& br, const Huff& dc, int ah, int al, int& pred,
+                           int16_t* c, bool& bad) {
+  if (ah == 0) {
+    int t = decode_huff(br, dc, bad);
+    if (t > 11) bad = true;
+    pred += t ? extend(br.get(t), t) : 0;
+    c[0] = (int16_t)(pred * (1 << al));
+  } else if (br.get(1)) {
+    c[0] = (int16_t)(c[0] | (1 << al));
+  }
+}
+
+// The first AC scan of band [ss, se]: run/size codes, each coefficient
+// scaled by 2^Al; EOBr starts a run of 2^r + r more bits blocks with no
+// coefficient in the band (this one included).
+void decode_ac_first(BitReader& br, const Huff& ac, int ss, int se, int al, int& eobrun,
+                     int16_t* c, bool& bad) {
+  if (eobrun > 0) {
+    --eobrun;
+    return;
+  }
+  for (int k = ss; k <= se; ++k) {
+    int rs = decode_huff(br, ac, bad);
+    int r = rs >> 4, sz = rs & 15;
+    if (sz) {
+      k += r;
+      if (k > 63) { bad = true; return; }
+      c[g_zigzag[k]] = (int16_t)(extend(br.get(sz), sz) * (1 << al));
+    } else if (r == 15) {
+      k += 15;  // ZRL
+    } else {
+      eobrun = (1 << r) + (r ? br.get(r) : 0) - 1;
+      return;
+    }
+  }
+}
+
+// An AC refinement scan of band [ss, se]: a correction bit (bit Al) for
+// every coefficient already non-zero, and new coefficients of +-2^Al, each
+// after r coefficients that stay zero; inside an EOB run only corrections.
+void decode_ac_refine(BitReader& br, const Huff& ac, int ss, int se, int al, int& eobrun,
+                      int16_t* c, bool& bad) {
+  const int p1 = 1 << al, m1 = -(1 << al);
+  auto correct = [&](int16_t& v) {
+    if (br.get(1) && (v & p1) == 0) v = (int16_t)(v + (v >= 0 ? p1 : m1));
+  };
+  int k = ss;
+  if (eobrun == 0) {
+    for (; k <= se; ++k) {
+      int rs = decode_huff(br, ac, bad);
+      int r = rs >> 4, sz = rs & 15, nz = 0;
+      if (sz) {
+        nz = br.get(1) ? p1 : m1;  // a size other than 1 is libjpeg's warning only
+      } else if (r != 15) {
+        eobrun = (1 << r) + (r ? br.get(r) : 0);
+        break;
+      }
+      do {  // past the non-zero coefficients (each corrected) and r zeros
+        int16_t& v = c[g_zigzag[k]];
+        if (v != 0) correct(v);
+        else if (--r < 0) break;
+        ++k;
+      } while (k <= se);
+      if (nz) {
+        if (k > 63) { bad = true; return; }
+        c[g_zigzag[k]] = (int16_t)nz;
+      }
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= se; ++k) {
+      int16_t& v = c[g_zigzag[k]];
+      if (v != 0) correct(v);
+    }
+    --eobrun;
+  }
+}
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;       // Huffman tables of the current scan
@@ -302,6 +388,7 @@ struct Component {
   uint16_t qt[64];          // latched quantisation table, natural order
   bool qt_latched = false;
   std::vector<uint8_t> plane;
+  std::vector<int16_t> coef;  // progressive: bw x bh blocks of 64, natural order
 };
 
 struct Jpeg {
@@ -311,6 +398,7 @@ struct Jpeg {
   bool jfif = false;
   int orientation = 1;
   bool sof_seen = false;
+  bool progressive = false;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huff dc[4], ac[4];
@@ -368,12 +456,13 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
     const uint8_t* s = p + 2;
     int sn = len - 2;
     p += len;
-    if (m == 0xC2 || m == 0xC6) return kErrProgressive;
     if (m == 0xC9 || m == 0xCA || m == 0xCB || m == 0xCD || m == 0xCE || m == 0xCF || m == 0xCC)
       return kErrArithmetic;
-    if (m == 0xC3 || m == 0xC5 || m == 0xC7 || m == 0xDE || m == 0xDF) return kErrUnsupported;
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC3 || m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xDE || m == 0xDF)
+      return kErrUnsupported;
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       if (j.sof_seen) return kErrCorrupt;  // a second frame header (libjpeg: JERR_SOF_DUPLICATE)
+      j.progressive = m == 0xC2;
       if (sn < 6 || s[0] != 8) return kErrUnsupported;  // 8-bit samples only
       j.height = be16(s + 1);
       j.width = be16(s + 3);
@@ -406,6 +495,7 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
       for (int c = 0; c < j.ncomp; ++c) {
         Component& cp = j.comp[c];
         cp.plane.assign((size_t)cp.bw * 8 * cp.bh * 8, 0);
+        if (j.progressive) cp.coef.assign((size_t)cp.bw * cp.bh * 64, 0);
       }
       continue;
     }
@@ -462,6 +552,14 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
       int ns = s[0];
       if (ns < 1 || ns > j.ncomp || sn < 1 + 2 * ns + 3) return kErrCorrupt;
       Component* sc[4];
+      int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+      // the tables a scan reads: both in a sequential scan; in a progressive
+      // one the DC table in a first DC scan, the AC table in an AC scan
+      bool need_dc = !j.progressive || (ss == 0 && ah == 0), need_ac = !j.progressive || ss > 0;
+      if (j.progressive) {  // libjpeg's JERR_BAD_PROGRESSION
+        if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) return kErrCorrupt;
+        if ((ah != 0 && al != ah - 1) || al > 13) return kErrCorrupt;
+      }
       for (int i = 0; i < ns; ++i) {
         int cid = s[1 + 2 * i];
         Component* cp = nullptr;
@@ -470,7 +568,8 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
         if (!cp) return kErrCorrupt;
         cp->td = s[2 + 2 * i] >> 4;
         cp->ta = s[2 + 2 * i] & 15;
-        if (cp->td > 3 || cp->ta > 3 || !j.dc[cp->td].defined || !j.ac[cp->ta].defined)
+        if (cp->td > 3 || cp->ta > 3 || (need_dc && !j.dc[cp->td].defined) ||
+            (need_ac && !j.ac[cp->ta].defined))
           return kErrCorrupt;
         if (!cp->qt_latched) {
           if (!j.qt_defined[cp->tq]) return kErrCorrupt;
@@ -480,10 +579,11 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
         cp->pred = 0;
         sc[i] = cp;
       }
-      int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ahal = s[3 + 2 * ns];
-      if (ss != 0 || se != 63 || ahal != 0) return kErrProgressive;
+      // a sequential scan's Ss, Se, Ah and Al are not read (libjpeg warns
+      // JWRN_NOT_SEQUENTIAL and decodes the scan as sequential)
       BitReader br{p, end};
       bool bad = false;
+      int eobrun = 0;  // progressive AC scans: blocks left in the current EOB run
       int16_t blk[64];
       int nmcu_x, nmcu_y;
       if (ns == 1) {
@@ -500,6 +600,7 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
           if (j.restart_interval && done > 0 && todo == 0) {
             br.restart();
             for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+            eobrun = 0;
             todo = j.restart_interval;
           }
           for (int i = 0; i < ns; ++i) {
@@ -507,6 +608,19 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
             int nbh = ns == 1 ? 1 : cp.h, nbv = ns == 1 ? 1 : cp.v;
             for (int by = 0; by < nbv; ++by) {
               for (int bx = 0; bx < nbh; ++bx) {
+                int row = ns == 1 ? my : my * cp.v + by;
+                int col = ns == 1 ? mx : mx * cp.h + bx;
+                if (j.progressive) {
+                  int16_t* c = cp.coef.data() + ((size_t)row * cp.bw + col) * 64;
+                  if (ss == 0)
+                    decode_dc_progressive(br, j.dc[cp.td], ah, al, cp.pred, c, bad);
+                  else if (ah == 0)
+                    decode_ac_first(br, j.ac[cp.ta], ss, se, al, eobrun, c, bad);
+                  else
+                    decode_ac_refine(br, j.ac[cp.ta], ss, se, al, eobrun, c, bad);
+                  if (bad) return kErrCorrupt;
+                  continue;
+                }
                 std::memset(blk, 0, sizeof(blk));
                 int t = decode_huff(br, j.dc[cp.td], bad);
                 if (t > 11) bad = true;
@@ -527,8 +641,6 @@ int run(Jpeg& j, const uint8_t* buf, long n, bool with_scans) {
                   }
                 }
                 if (bad) return kErrCorrupt;
-                int row = ns == 1 ? my : my * cp.v + by;
-                int col = ns == 1 ? mx : mx * cp.h + bx;
                 int stride = cp.bw * 8;
                 idct_islow(blk, cp.qt, cp.plane.data() + (size_t)row * 8 * stride + col * 8, stride);
               }
@@ -856,6 +968,20 @@ int ic_jpeg_decode(const uint8_t* buf, long n, int height, int width, int gray, 
   if (rc < 0) return rc;
   if (!j.sof_seen) return kErrCorrupt;
   if (j.height != height || j.width != width) return kErrCorrupt;
+  if (j.progressive) {  // every scan read: the IDCT of each block's coefficients
+    for (int c = 0; c < j.ncomp; ++c) {
+      Component& cp = j.comp[c];
+      if (!cp.qt_latched) {  // a component no scan carried
+        if (!j.qt_defined[cp.tq]) return kErrCorrupt;
+        std::memcpy(cp.qt, j.qt[cp.tq], sizeof(cp.qt));
+      }
+      const int stride = cp.bw * 8;
+      for (int by = 0; by < cp.bh; ++by)
+        for (int bx = 0; bx < cp.bw; ++bx)
+          idct_islow(cp.coef.data() + ((size_t)by * cp.bw + bx) * 64, cp.qt,
+                     cp.plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+    }
+  }
   const int W = j.width, H = j.height;
   std::vector<uint8_t> up[3];
   int ustride[3];

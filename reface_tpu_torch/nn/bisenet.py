@@ -5,9 +5,10 @@ ResNet-18 backbone (feat8/16/32), attention refinement on the 16 and 32
 features plus the global context, feature fusion of feat8 with the refined
 context (the spatial path is feat8, as in face-parsing.PyTorch), the
 19-class head, and the bilinear align_corners=True upsample to the input
-size; optionally the two auxiliary heads. BatchNorm is the frozen inference
-form in fp32 (nn/arcface.py), each conv computes in the config's dtype, and
-the logits come back fp32.
+size (two products with constant matrices, weighted as the JAX gather-lerp
+weighs); optionally the two auxiliary heads. BatchNorm is the frozen
+inference form in fp32 (nn/arcface.py), each conv computes in the config's
+dtype, and the logits come back fp32.
 
 Module names are the face-parsing checkpoint's (`cp.resnet.layer1.0.conv1.
 weight`, `cp.arm16.conv.conv.weight`, `ffm.convblk.bn.running_mean`,
@@ -18,6 +19,7 @@ BiSeNet rule reads, so 79999_iter.pth loads with load_state_dict alone.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from torch import nn
 
 from reface_tpu_torch.nn.arcface import BatchNormInference
 from reface_tpu_torch.nn.layers import Conv2d
+from reface_tpu_torch.ops.separable import separable_resize
 
 __all__ = ["BiSeNetConfig", "BiSeNet", "parse_faces", "SEG_MEAN", "SEG_STD",
            "resize_bilinear_align_corners"]
@@ -41,9 +44,29 @@ class BiSeNetConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
+@functools.lru_cache(maxsize=32)
+def align_corners_matrix(n: int, m: int) -> np.ndarray:
+    """(m, n) fp32 weights of an align_corners=True bilinear n -> m along one
+    axis, the JAX gather-lerp's (reface_tpu/nn/bisenet.py): output i samples
+    i * (n - 1) / (m - 1), 1 - f on its floor and f on the next pixel
+    (clamped to the last)."""
+    s = np.linspace(0.0, n - 1.0, m).astype(np.float32)
+    i0 = np.floor(s).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n - 1)
+    f = s - i0.astype(np.float32)
+    a = np.zeros((m, n), np.float32)
+    rows = np.arange(m)
+    np.add.at(a, (rows, i0), np.float32(1.0) - f)
+    np.add.at(a, (rows, i1), f)
+    return a
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """NCHW bilinear resize with align_corners=True."""
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=True)
+    """NCHW bilinear resize with align_corners=True: two fp32 products with
+    align_corners_matrix (ops/separable.py), whose backward sums in a fixed
+    order (the seg guidance differentiates through it), returned in
+    x.dtype."""
+    return separable_resize(x, align_corners_matrix, h, w)
 
 
 def _conv(cin, cout, ks, stride=1, dt=torch.float32, device=None):

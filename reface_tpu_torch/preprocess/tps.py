@@ -5,7 +5,9 @@ U(r) = r^2 log r^2 kernel, the (p+3) L-matrix solve, the [-1,1] grid
 convention; `grid_sample_2d` is torch's grid_sampler_2d (bilinear, zeros
 padding, align_corners=False), which the JAX function writes out as a
 gather-lerp. The training datasets' mask warp is the host TPS of
-data/augment.py.
+data/augment.py; `random_tps_mask_warp` is the JAX package's device form of
+it (the `decow` augmentation), its draws from a torch.Generator, and
+`tps_mask_warp` the same warp from given draws.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["tps_coefs", "tps_warp", "tps_grid", "grid_sample_2d"]
+__all__ = ["tps_coefs", "tps_warp", "tps_grid", "grid_sample_2d", "tps_mask_warp",
+           "random_tps_mask_warp"]
 
 
 def _u_kernel(r2: torch.Tensor) -> torch.Tensor:
@@ -68,3 +71,32 @@ def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     the image are zero. Returns (B, C, H, W)."""
     return F.grid_sample(img, grid.to(img.dtype), mode="bilinear", padding_mode="zeros",
                          align_corners=False)
+
+
+def tps_mask_warp(mask: torch.Tensor, scale, noise: torch.Tensor) -> torch.Tensor:
+    """The draw-free core of random_tps_mask_warp: the interior of a grid_n x
+    grid_n control grid over [-1, 1] moved by (noise - 0.5) * scale, noise
+    (grid_n - 2, grid_n - 2, 2) in [0, 1) as (x, y), and the NCHW mask
+    (B, C, H, W) TPS-warped by it."""
+    b, _, h, w = mask.shape
+    n = noise.shape[0] + 2
+    lin = torch.linspace(-1.0, 1.0, n, device=mask.device)
+    gy, gx = torch.meshgrid(lin, lin, indexing="ij")
+    ctrl = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+    full = torch.zeros((n, n, 2), device=mask.device)
+    full[1:-1, 1:-1] = (torch.as_tensor(noise, device=mask.device).float() - 0.5) * scale
+    grid = tps_grid(ctrl, ctrl + full.reshape(-1, 2), h, w)
+    return grid_sample_2d(mask, grid[None].expand(b, h, w, 2))
+
+
+def random_tps_mask_warp(mask: torch.Tensor, generator: torch.Generator | None = None,
+                         scale_range=(0.5, 1.0), grid_n: int = 3) -> torch.Tensor:
+    """The `decow` augmentation (reface_tpu/preprocess/tps.py): jitter the
+    interior of a grid_n x grid_n control grid and TPS-warp the NCHW mask;
+    scale ~ U(scale_range), the noise U[0, 1), both drawn from `generator`
+    (a generator on the mask's device)."""
+    dev = mask.device
+    u = torch.rand((), generator=generator, device=dev)
+    scale = scale_range[0] + u * (scale_range[1] - scale_range[0])
+    noise = torch.rand((grid_n - 2, grid_n - 2, 2), generator=generator, device=dev)
+    return tps_mask_warp(mask, scale, noise)

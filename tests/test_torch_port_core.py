@@ -116,7 +116,9 @@ def test_port_imports_no_jax():
         "reface_tpu_torch.diffusion.distill, reface_tpu_torch.cli.distill, "
         "reface_tpu_torch.diffusion.vae_loss, reface_tpu_torch.nn.discriminator, "
         "reface_tpu_torch.cli.train_vae, reface_tpu_torch.cli.train_landmarks, "
-        "reface_tpu_torch.data.raster\n"
+        "reface_tpu_torch.data.raster, reface_tpu_torch.data.video, "
+        "reface_tpu_torch.io.video, reface_tpu_torch.cli.video_swap, "
+        "reface_tpu_torch.ops.separable\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'reface_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"

@@ -6,8 +6,9 @@ native/image_codec.cpp) against cv2 and PIL, which the port does not use.
   read as colour and as gray, equal to cv2.imdecode pixel for pixel.
 - Baseline JPEG decode: 4:4:4, 4:2:2, 4:2:0 (PIL's encoder), gray, restart
   markers (cv2's encoder) and an EXIF orientation, as colour and as gray,
-  equal to cv2.imdecode pixel for pixel; a progressive file raises, and so
-  does one with a second frame header.
+  equal to cv2.imdecode pixel for pixel; a progressive file decodes (the
+  progressive cases are tests/test_torch_port_jpeg_progressive.py's), one
+  with a second frame header raises.
 - Encoders: cv2 reads the port's PNG exactly; the port's quality-95 JPEG,
   decoded by cv2, is within 0.1 dB PSNR of cv2's own quality-95 file.
 - resize_linear: cv2.resize INTER_LINEAR within one level on uint8 (cv2's
@@ -204,15 +205,15 @@ def _doubled_sof(data, at_end):
 
 
 def test_progressive_or_malformed_jpeg_raises():
-    """A progressive file names ROADMAP A9c; a file with a second, larger
-    frame header is refused, as libjpeg refuses one before the scan
+    """A progressive file decodes as cv2 decodes it; a file with a second,
+    larger frame header is refused, as libjpeg refuses one before the scan
     (JERR_SOF_DUPLICATE); one after the scan, which libjpeg never reads,
     is refused too, so that nothing is written past the buffer sized from
     the first."""
     b = io.BytesIO()
     Image.fromarray(_smooth(40, 48)).save(b, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="progressive JPEG.*ROADMAP A9c"):
-        I.imdecode(b.getvalue())
+    assert b"\xff\xc2" in b.getvalue()
+    np.testing.assert_array_equal(I.imdecode(b.getvalue()), _cv2(b.getvalue()))
     with pytest.raises(ValueError, match="not a PNG or JPEG"):
         I.imdecode(b"GIF89a")
     b = io.BytesIO()
