@@ -232,7 +232,29 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      --bench-ram (frames decoded before the clock, no writer), peak
      memory, and whether the host has
      ffmpeg (if it has, swapped.mp4 is written). The files are deleted at
-     the end.
+     the end;
+  17. (run after phase 13) the parallel runtime (parallel/mesh.py,
+     parallel/tp.py) on the one card. (a) In a process of its own: two
+     eps-MSE steps at SwapConfig() widths, 512 px, batch 4, plain and with
+     the mesh of a world of one over NCCL (init_distributed with
+     --coordinator 127.0.0.1:<free port>), and cli.train for 2 steps at
+     batch 2 on a 4-item CelebA-style tree without the flags and with
+     --coordinator/--num-processes 1/--process-id 0, all under
+     cudnn.deterministic: losses, UNet gradient, updated UNet and the
+     driver's losses bit-equal. (b) Two processes sharing cuda:0 over gloo
+     (NCCL refuses two ranks on one device): a DP step (2 rows a rank)
+     bit-equal to the mean of the one-process step's two halves and within
+     phase 7's limits of (a)'s batch-4 step (loss, UNet gradient, the
+     clip's global norm and the UNet's change by AdamW, every step at lr
+     100 behind a clip of 1e-9: PAR_TCFG); a TP UNet forward (bf16, batch
+     2, CFG dedup) within phase 4's bf16 limit of the whole UNet, in fp32
+     within TP_FP32_TOL, K1 per rank by shape against mode_plan with the
+     heads halved; a TP step (the 4 rows on both, half the heads and
+     channels a rank) within phase 7's limits of (a)'s step, the same four
+     held, the norm over the model group and the change gathered. Each step's seconds and those in
+     collectives are printed as two ranks sharing one card, not a scaling
+     figure. K1, K2r, K4 and K5 at the per-rank TP shapes against their
+     plain versions, timed. The files are deleted at the end.
 
 It prints one JSON line of kernel numbers and, last, {"ok": true, "device":
 ...}. Any failure exits non-zero before that line; without a CUDA device it
@@ -5187,6 +5209,439 @@ def video_path(cpu_params: dict, smi: str) -> dict:
     return stats
 
 
+# ------------------------------------------------------------------ phase 17
+
+# Phase 17, the parallel runtime (parallel/mesh.py, parallel/tp.py). (a) one
+# process joins a world of one over NCCL; the mesh's step must be bit-equal
+# to the plain one. (b) two processes share the one card over gloo (NCCL
+# refuses two ranks on a device): a data-parallel and a tensor-parallel step
+# against (a)'s one-process step, held to phase 7's limits (the per-rank
+# batch and heads change the kernels' summation shapes, and the TP layers'
+# rounding points): the loss, the UNet gradient, the clip's global norm and
+# the change AdamW made to the UNet; and a TP UNet forward against the whole UNet, held to
+# the bf16-against-fp32 limit of phase 4 (a bf16 forward whose rounding
+# points moved). Their seconds are two ranks sharing one card, not a
+# scaling figure.
+PAR_BATCH = 4  # the one-process step's batch and the DP world batch
+PAR_STEPS = 2
+PAR_CLI_BATCH = 2
+PAR_CLI_ITEMS, PAR_CLI_SIZE = 4, 512
+# Every step at lr 100 (no warmup: the schedule holds learning_rate x 1e-6)
+# behind a clip of 1e-9 that always engages, without weight decay. The
+# clipped gradient's elements then lie below a tenth of Adam's eps (1e-8),
+# where Adam's first update g / (|g| + eps) is g / eps to within 10 %: the
+# change of the weights is the clipped gradient scaled by lr / eps, so it
+# shows a shard skipped or updated twice and a wrong global norm, instead
+# of the gradient's signs alone.
+PAR_TCFG = TrainConfig(learning_rate=1e8, warmup_steps=0, weight_decay=0.0, grad_clip=1e-9)
+# the per-rank TP shapes of K2r, K4 and K5 in a batch-4 step (4 of the 8
+# heads a rank) and of K1 in a batch-2 forward with CFG dedup
+TP_TRAIN_SHAPES = ((16, 4096, 4096, 40), (16, 1024, 1024, 80))
+# the fp32 TP UNet forward against the whole fp32 UNet (TF32 off): only the
+# summation order of the row-parallel products and the convs' split moves;
+# expected near 1e-6 relative L2
+TP_FP32_TOL = 1e-4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_dir() -> Path:
+    return Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
+
+
+def par_inputs():
+    """The batches and draws of phase 17's steps (global, PAR_BATCH rows),
+    the same in every process on the card."""
+    cfg = SwapConfig()
+    batches = [make_request(300 + s, cfg.image_size, "cuda", batch=PAR_BATCH)
+               for s in range(PAR_STEPS)]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    draws = [make_draws(PAR_BATCH, cfg.latent_size, PAR_TCFG, "cuda", gen)
+             for _ in range(PAR_STEPS)]
+    draws[0]["drop"][0] = True
+    return batches, draws
+
+
+def par_params() -> dict:
+    """Seeded full-width training towers' state dicts (zero-initialised
+    layers re-randomised), the same in every process on the card."""
+    from reface_tpu_torch.pipelines.train import TrainModules
+
+    m = TrainModules(SwapConfig(), "cuda")
+    for i, t in enumerate(m.towers().values()):
+        init_params(t, seed=i, dezero=True)
+    return {n: t.state_dict() for n, t in m.towers().items()}
+
+
+def timed_collectives() -> dict:
+    """Wrap torch.distributed's collectives (what parallel/mesh.py calls) in
+    a synchronised clock: {"s": seconds, "n": calls}."""
+    import torch.distributed as dist
+
+    stats = {"s": 0.0, "n": 0}
+    for name in ("all_reduce", "all_gather", "broadcast"):
+        def wrap(*a, _fn=getattr(dist, name), **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            stats["s"] += time.perf_counter() - t
+            stats["n"] += 1
+            return out
+        setattr(dist, name, wrap)
+    return stats
+
+
+def par_steps(mesh, n: int, collectives=None, on_step=None, pre=None):
+    """n steps of make_train_step(SwapConfig(), mesh=mesh) on this rank's
+    rows of par_inputs(), cuDNN deterministic; pre(state, batches, draws)
+    before them, on_step(s, state) after each. Returns (state, per step:
+    loss, seconds, seconds in collectives, launches)."""
+    from reface_tpu_torch.diffusion.ddim_guided import deterministic_cudnn
+
+    step, _, init_state = make_train_step(SwapConfig(), PAR_TCFG, device="cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    state = init_state(par_params())
+    torch.cuda.synchronize()
+    state.setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    batches, draws = par_inputs()
+    if pre is not None:
+        pre(state, batches, draws)
+    b = PAR_BATCH // (1 if mesh is None else mesh.n_data)
+    lo = 0 if mesh is None else mesh.data_rank * b
+    out = []
+    for s in range(n):
+        local = {k: v[lo:lo + b] for k, v in batches[s].items()}
+        c0 = dict(collectives or {"s": 0.0, "n": 0})
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            state, metrics = step(state, local, draws[s])
+        torch.cuda.synchronize()
+        state.last_loss = metrics["loss"].item()
+        out.append({"loss": metrics["loss"].item(), "s": time.perf_counter() - t0,
+                    "setup_s": state.setup_s,
+                    "collective_s": (collectives or c0)["s"] - c0["s"],
+                    "collectives": (collectives or c0)["n"] - c0["n"],
+                    "launches": [x - y for x, y in zip(counts(), before)]})
+        if on_step is not None:
+            on_step(s, state)
+    return state, out
+
+
+def unet_state(state, grads: bool) -> dict:
+    return {k: (p.grad if grads else p).detach().float().clone()
+            for k, p in state.modules.unet.named_parameters()
+            if not grads or p.grad is not None}
+
+
+def clip_norm(state) -> float:
+    """The global norm the optimizer's clip took of the step's gradients
+    (under TP a collective over the model group: every rank calls it)."""
+    opt = state.opt
+    return float(opt._global_norm([torch.zeros_like(p) if p.grad is None else p.grad
+                                   for p in opt.params]))
+
+
+def nccl_world1(_rank, port: int, d: str):
+    """Phase 17 (a), in a process of its own: the plain steps, cli.train
+    without the flags, cli.train with --coordinator (a world of one over
+    NCCL), then the mesh's steps; bit-equal each to its plain twin. Writes
+    the plain step 0's loss, UNet gradient, clip norm and the change AdamW
+    made to the UNet (phase 17 (b)'s reference) and the stats to d."""
+    from reface_tpu_torch.diffusion.ddim_guided import deterministic_cudnn
+    from reface_tpu_torch.parallel import create_mesh, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = Path(d)
+    stats = {}
+    # the plain steps; step 0 kept as (b)'s reference
+    before = {}
+
+    def snap(state, *_):
+        before.update(unet_state(state, False))
+
+    def keep(s, state):
+        if s == 0:
+            after = unet_state(state, False)
+            delta = {k: after[k] - v for k, v in before.items()}
+            del after
+            before.clear()
+            rms = (sum(float(v.double().square().sum()) for v in delta.values())
+                   / sum(v.numel() for v in delta.values())) ** 0.5
+            torch.save({"loss": state.last_loss, "grad": unet_state(state, True),
+                        "delta": delta, "delta_rms": rms, "norm": clip_norm(state)},
+                       d / "ref.pt")
+            del delta
+
+    state, plain = par_steps(None, PAR_STEPS, on_step=keep, pre=snap)
+    grads, params = unet_state(state, True), unet_state(state, False)
+    del state
+    torch.cuda.empty_cache()
+    # cli.train without and with the flags
+    argv = ["--dataset-dir", str(d / "celeba"), "--batch-size", str(PAR_CLI_BATCH),
+            "--train-count", str(PAR_CLI_ITEMS), "--steps", "2", "--log-every", "1",
+            "--warmup-steps", "1", "--no-final-ckpt", "--image-log-every", "1000"]
+    cli_losses = {}
+    for name, extra in (("plain", []), ("flags", ["--coordinator", f"127.0.0.1:{port}",
+                                                  "--num-processes", "1",
+                                                  "--process-id", "0"])):
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            cli_train.main(argv + extra + ["--logdir", str(d / f"cli_{name}")])
+        torch.cuda.empty_cache()
+        cli_losses[name] = [m["loss"] for m in read_jsonl(d / f"cli_{name}" / "metrics.jsonl")]
+        stats[f"cli_{name}_s"] = time.perf_counter() - t0
+    import torch.distributed as dist
+
+    stats["backend"] = dist.get_backend()
+    rank, world = init_distributed(f"127.0.0.1:{port}", 1, 0)  # already joined: the same
+    mesh = create_mesh()
+    collectives = timed_collectives()
+    state, meshed = par_steps(mesh, PAR_STEPS, collectives)
+    same = {"losses": [p["loss"] for p in plain] == [m["loss"] for m in meshed],
+            "grad": all(torch.equal(g, p.grad.float()) for g, p in zip(
+                grads.values(), (q for q in state.modules.unet.parameters()
+                                 if q.grad is not None))),
+            "params": all(torch.equal(v, p.float()) for v, p in zip(
+                params.values(), state.modules.unet.parameters())),
+            "cli": cli_losses["plain"] == cli_losses["flags"]}
+    stats.update(world=(rank, world), plain=plain, meshed=meshed, cli_losses=cli_losses,
+                 bit_equal=same)
+    (d / "nccl_world1.json").write_text(json.dumps(stats))
+    dist.destroy_process_group()
+
+
+def tp_k1_plan(cfg: SwapConfig, n_model: int) -> dict:
+    """K1 by (BH, N, D) in one batch-2 UNet forward with CFG dedup on each
+    of n_model TP ranks: mode_plan's shapes with the heads split."""
+    plan = mode_plan(cfg, 1)
+    return {(bh // n_model, n, dd): c // plan["forwards"]
+            for (bh, n, dd), c in plan["K1"].items() if c}
+
+
+def gloo_two_ranks(rank: int, port: int, d: str):
+    """Phase 17 (b), rank `rank` of two sharing cuda:0 over gloo: the DP
+    step, the TP UNet forward and the TP step, each against its
+    one-process twin (rank 0 compares); writes rank 0's stats to d."""
+    from reface_tpu_torch.parallel import create_mesh, init_distributed
+    from reface_tpu_torch.parallel.tp import gather_params_tp, shard_params_tp
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = Path(d)
+    init_distributed(f"127.0.0.1:{port}", 2, rank, local_device="cuda:0", backend="gloo")
+    collectives = timed_collectives()
+    t_start = time.perf_counter()
+    ref = torch.load(d / "ref.pt", weights_only=False) if rank == 0 else None
+    stats = {}
+
+    def held(name, loss, grad, norm, start, after):
+        """The loss, the UNet gradient, the clip's norm and the UNet's change
+        against (a)'s step 0."""
+        rel_loss = abs(loss - ref["loss"]) / abs(ref["loss"])
+        rel_grad = rel_l2({k: g.cuda() for k, g in grad.items()},
+                          {k: g.cuda() for k, g in ref["grad"].items()})
+        rel_norm = abs(norm - ref["norm"]) / ref["norm"]
+        rel_delta = rel_l2({k: after[k].detach().float() - v for k, v in start.items()},
+                           {k: v.cuda() for k, v in ref["delta"].items()})
+        stats[name].update(rel_loss=rel_loss, rel_grad=rel_grad, norm=norm,
+                           ref_norm=ref["norm"], rel_norm=rel_norm, rel_delta=rel_delta,
+                           ref_delta_rms=ref["delta_rms"],
+                           ok=rel_loss <= TRAIN_TOL["loss"] and rel_grad <= TRAIN_TOL["grad"]
+                           and rel_norm <= TRAIN_TOL["grad"]
+                           and rel_delta <= TRAIN_TOL["grad"])
+
+    t_ref = time.perf_counter() - t_start
+
+    # data parallel: 2 rows a rank; rank 0 first runs the one-process step
+    # on each half of the batch (the same rows, draws and weights as the two
+    # ranks'), whose mean the two ranks' step must give bit for bit
+    # start: the UNet before the step (rank 0): the seeded par_params(), the
+    # TP step's starting point too
+    halves, start = {}, {}
+
+    def by_halves(state, batches, draws):
+        from reface_tpu_torch.diffusion.ddim_guided import deterministic_cudnn
+
+        if rank:
+            return
+        start.update(unet_state(state, False))
+        plain = make_train_step(SwapConfig(), PAR_TCFG, device="cuda")[0]
+        h = PAR_BATCH // 2
+        for lo in (0, h):
+            with deterministic_cudnn():
+                loss, _ = plain.loss_and_grads(
+                    state.modules, {k: v[lo:lo + h] for k, v in batches[0].items()},
+                    {k: v[lo:lo + h] for k, v in draws[0].items()})
+            g = unet_state(state, True)
+            halves["loss"] = loss if lo == 0 else (halves["loss"] + loss) / 2
+            halves["grad"] = g if lo == 0 else {k: (halves["grad"][k] + v) / 2
+                                                for k, v in g.items()}
+            del g
+
+    mesh = create_mesh()
+    state, dp = par_steps(mesh, 1, collectives, pre=by_halves)
+    stats["dp"] = dp[0]
+    if rank == 0:
+        held("dp", dp[0]["loss"], unet_state(state, True), clip_norm(state), start,
+             dict(state.modules.unet.named_parameters()))
+        g = unet_state(state, True)
+        stats["dp"]["bit_equal_to_halves"] = (
+            dp[0]["loss"] == halves["loss"].item() and g.keys() == halves["grad"].keys()
+            and all(torch.equal(v, halves["grad"][k]) for k, v in g.items()))
+        stats["dp"]["ok"] = stats["dp"]["ok"] and stats["dp"]["bit_equal_to_halves"]
+        del g
+    halves.clear()
+    del state
+    torch.cuda.empty_cache()
+
+    # tensor parallel: the UNet forward (bf16, batch 2, CFG dedup)
+    cfg = SwapConfig()
+    tp_mesh = create_mesh(n_data=1, n_model=2)
+    unet = UNetModel(cfg.unet, device="cuda").eval().requires_grad_(False)
+    init_params(unet, seed=3, dezero=True)
+    x, t, ctx = unet_inputs(cfg, 5, 2 * BATCH)
+    with torch.no_grad():
+        whole = unet(x, t, ctx, cfg_expand=True)
+        shard_params_tp(unet, tp_mesh)
+        self_attention_smalld.shapes = collections.Counter()
+        before, c0 = counts(), dict(collectives)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        part = unet(x, t, ctx, cfg_expand=True)
+        torch.cuda.synchronize()
+    k1 = dict(self_attention_smalld.shapes)
+    self_attention_smalld.shapes = None
+    rel = float((part - whole).double().norm() / whole.double().norm())
+    plan = tp_k1_plan(cfg, 2)
+    stats["tp_forward"] = {
+        "s": time.perf_counter() - t0, "collective_s": collectives["s"] - c0["s"],
+        "collectives": collectives["n"] - c0["n"], "rel_l2": rel,
+        "k1_shapes": {str(list(k)): v for k, v in k1.items()},
+        "k1_plan": {str(list(k)): v for k, v in plan.items()},
+        "launches": [a - b for a, b in zip(counts(), before)],
+        "ok": rel <= TOWER_TOL["UNet"] and k1 == plan}
+    del unet, whole, part
+    # the same in fp32 (TF32 off): the function, rounding aside
+    unet = UNetModel(dataclasses.replace(cfg.unet, dtype=torch.float32),
+                     device="cuda").eval().requires_grad_(False)
+    init_params(unet, seed=3, dezero=True)
+    with torch.no_grad():
+        whole = unet(x, t, ctx, cfg_expand=True)
+        shard_params_tp(unet, tp_mesh)
+        part = unet(x, t, ctx, cfg_expand=True)
+    rel32 = float((part - whole).double().norm() / whole.double().norm())
+    stats["tp_forward"]["rel_l2_fp32"] = rel32
+    stats["tp_forward"]["ok"] = stats["tp_forward"]["ok"] and rel32 <= TP_FP32_TOL
+    del unet, whole, part
+    torch.cuda.empty_cache()
+
+    # tensor parallel: one step at the whole batch on both ranks
+    state, tp = par_steps(tp_mesh, 1, collectives)
+    stats["tp"] = tp[0]
+    grads = gather_params_tp(state.modules, tp_mesh, grads=True)
+    params = gather_params_tp(state.modules, tp_mesh)
+    norm = clip_norm(state)  # the model group's collective: both ranks
+    if rank == 0:
+        held("tp", tp[0]["loss"], {k: g for k, g in grads.items() if g is not None}, norm,
+             start, params)
+        stats["tp"]["sharded"] = sum(getattr(p, "tp_dim", None) is not None
+                                     for p in state.modules.unet.parameters())
+        stats["ref_load_s"] = t_ref
+        (d / "gloo_two_ranks.json").write_text(json.dumps(stats))
+    del state, grads, params
+    start.clear()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_path(smi: str, gen) -> dict:
+    """Phase 17: the parallel runtime on the one card; (a) and (b) above,
+    each in processes of their own, then K1, K2r, K4 and K5 at the per-rank
+    TP shapes against their plain versions. Returns its stats."""
+    import torch.multiprocessing as mp
+
+    d = par_dir()
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    make_synthetic_celeba(str(d / "celeba"), count=PAR_CLI_ITEMS, size=PAR_CLI_SIZE, seed=17)
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(nccl_world1, args=(free_port(), str(d)), nprocs=1, join=True,
+                           start_method="spawn")
+        a = json.loads((d / "nccl_world1.json").read_text())
+        a["wall_s"] = time.perf_counter() - t0
+        print(f"  (a) a world of one over {a['backend']} (rank, world {a['world']}): "
+              f"{PAR_STEPS} eps-MSE steps at batch {PAR_BATCH}, losses "
+              f"{[p['loss'] for p in a['plain']]} plain, {[m['loss'] for m in a['meshed']]} "
+              f"with the mesh; step seconds {[round(p['s'], 3) for p in a['plain']]} plain, "
+              f"{[round(m['s'], 3) for m in a['meshed']]} with the mesh, of which "
+              f"{[round(m['collective_s'], 3) for m in a['meshed']]} s in "
+              f"{[m['collectives'] for m in a['meshed']]} collectives; cli.train losses "
+              f"{a['cli_losses']}; bit-equal {a['bit_equal']} ({a['wall_s']:.1f} s)",
+              flush=True)
+        if not all(a["bit_equal"].values()):
+            fail(f"the world of one differs from the plain step: {a['bit_equal']}")
+        t0 = time.perf_counter()
+        mp.start_processes(gloo_two_ranks, args=(free_port(), str(d)), nprocs=2, join=True,
+                           start_method="spawn")
+        b = json.loads((d / "gloo_two_ranks.json").read_text())
+        b["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    label = f"two ranks sharing one card over gloo, {smi}: not a scaling figure"
+    print(f"  (a) cli.train {a['cli_plain_s']:.1f} s without the flags, {a['cli_flags_s']:.1f} s "
+          f"with them; (b) the reference loaded in {b['ref_load_s']:.1f} s, the towers set "
+          f"up in {b['dp']['setup_s']:.1f} s (DP) and {b['tp']['setup_s']:.1f} s (TP), "
+          f"{b['wall_s']:.1f} s in all", flush=True)
+    for name, what in (("dp", "DP step (2 rows a rank)"),
+                       ("tp", "TP step (the 4 rows, half the heads and channels a rank)")):
+        st = b[name]
+        print(f"  (b) {what}: loss {st['loss']:.6f} vs {a['plain'][0]['loss']:.6f} (rel "
+              f"{st['rel_loss']:.3e}, tol {TRAIN_TOL['loss']:.0e}), UNet gradient rel L2 "
+              f"{st['rel_grad']:.3e} (tol {TRAIN_TOL['grad']:.0e}), the clip's norm "
+              f"{st['norm']:.6e} vs {st['ref_norm']:.6e} (rel {st['rel_norm']:.3e}, tol "
+              f"{TRAIN_TOL['grad']:.0e}), the UNet's change by AdamW (RMS "
+              f"{st['ref_delta_rms']:.3e} in the reference) rel L2 {st['rel_delta']:.3e} (tol "
+              f"{TRAIN_TOL['grad']:.0e})"
+              + (f", {st['sharded']} UNet tensors sharded" if name == "tp" else
+                 f", bit-equal to the mean of the one-process step's two halves "
+                 f"{st['bit_equal_to_halves']}")
+              + f"; {st['s']:.3f} s, {st['collective_s']:.3f} s in {st['collectives']} "
+              f"collectives ({label}); launches {st['launches']}", flush=True)
+        if not st["ok"]:
+            fail(f"the {what} disagrees with the one-process step")
+    f = b["tp_forward"]
+    print(f"  (b) TP UNet forward (bf16, batch {BATCH}, CFG dedup): rel L2 {f['rel_l2']:.3e} "
+          f"against the whole UNet (tol {TOWER_TOL['UNet']:.0e}), in fp32 "
+          f"{f['rel_l2_fp32']:.3e} (tol {TP_FP32_TOL:.0e}); K1 per rank "
+          f"{f['k1_shapes']}, planned {f['k1_plan']}; {f['s']:.3f} s, "
+          f"{f['collective_s']:.3f} s in {f['collectives']} collectives ({label})", flush=True)
+    if not f["ok"]:
+        fail("the TP UNet forward disagrees with the whole UNet or its K1 plan")
+    print("  K1 at the per-rank TP shapes of a batch-2 forward against its plain version",
+          flush=True)
+    k1_entry = check_attention("K1", self_attention_smalld, collections.Counter(
+        {(bh, n, n, dd): c for (bh, n, dd), c in tp_k1_plan(SwapConfig(), 2).items()}), [], gen)
+    print("  K2r, K4 and K5 at the per-rank TP shapes of a batch-4 step", flush=True)
+    worst = check_train_kernels(gen, TP_TRAIN_SHAPES)
+    times = time_train_kernels(gen, TP_TRAIN_SHAPES)
+    return {"nccl_world1": a, "gloo_two_ranks": b, "k1": k1_entry, "train_worst": worst,
+            "train_times": times, "label": label}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5386,6 +5841,15 @@ def main():
     torch.cuda.empty_cache()
     cli_stats["wall_s"] = t13 = time.perf_counter() - t13
     print(f"  phase 13 took {t13:.1f} s of wall", flush=True)
+    t17 = time.perf_counter()
+    print("phase 17: the parallel runtime on the one card: a world of one over NCCL (the "
+          "mesh's steps and cli.train --coordinator bit-equal to the plain ones), two ranks "
+          "over gloo (a DP and a TP step against the one-process step, a TP UNet forward "
+          "against the whole UNet), K1, K2r, K4 and K5 at the per-rank TP shapes", flush=True)
+    par_stats = parallel_path(smi, gen)
+    torch.cuda.empty_cache()
+    par_stats["wall_s"] = t17 = time.perf_counter() - t17
+    print(f"  phase 17 took {t17:.1f} s of wall", flush=True)
     wide_shape = (full_batch, 4096, 4096, 512)
     if wide_shape not in wide_stats["K2r"]:
         for key, by_shape in time_train_kernels(gen, [wide_shape]).items():
@@ -5573,6 +6037,25 @@ def main():
         row["launches_video"] = {
             f"cli.video_swap {VIDEO_FRAMES} frames, batch {VIDEO_BATCH}, DDIM-{VIDEO_STEPS}":
             video_stats["launches"][k.__name__]}
+    # phase 17: launches a rank in the parallel runs (rank 0), and the
+    # kernels at the per-rank TP shapes
+    gl = par_stats["gloo_two_ranks"]
+    for row, idx in zip([rows[i] for i in (0, 1, 3, 4, 5)], (0, 1, 3, 4, 5)):
+        row["launches_parallel"] = {
+            "NCCL world of one, 2 steps": sum(m["launches"][idx]
+                                              for m in par_stats["nccl_world1"]["meshed"]),
+            "gloo DP step, rank 0": gl["dp"]["launches"][idx],
+            "gloo TP step, rank 0": gl["tp"]["launches"][idx],
+            "gloo TP UNet forward, rank 0": gl["tp_forward"]["launches"][idx]}
+    rows[0]["tp_per_rank"] = {"shapes": gl["tp_forward"]["k1_plan"], **{
+        k: par_stats["k1"][k] for k in ("max_abs_err", "rel_l2_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")}}
+    for row, key in zip(rows[3:6], ("K2r", "K4", "K5")):
+        w = par_stats["train_worst"][key]
+        row["tp_per_rank"] = {"max_abs_err": w["bf16"], "rel_l2_err": w["rel"],
+                              "max_abs_err_fp32": w["fp32"], **{
+                                  str(list(sh)): par_stats["train_times"][key][sh]
+                                  for sh in TP_TRAIN_SHAPES}}
     rows[1]["batch4"] = {k: b4_k2[k] for k in (
         "max_abs_err", "rel_l2_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     steady = lat[1:] or lat
@@ -5613,14 +6096,20 @@ def main():
           f"{trainer_stats['train_landmarks']['mean_shape_px']:.2f}), phase 15 "
           f"{trainer_stats['wall_s']:.1f} s; cli.video_swap (batch {VIDEO_BATCH}, "
           f"DDIM-{VIDEO_STEPS}) {video_stats['steady_frames_per_s']} frames/s, peak "
-          f"{video_stats['peak_gib']:.2f} GiB, phase 16 {video_stats['wall_s']:.1f} s; wall "
+          f"{video_stats['peak_gib']:.2f} GiB, phase 16 {video_stats['wall_s']:.1f} s; "
+          f"parallel ({par_stats['label']}) DP step {gl['dp']['s']:.3f} s with "
+          f"{gl['dp']['collective_s']:.3f} s in collectives, TP step {gl['tp']['s']:.3f} s with "
+          f"{gl['tp']['collective_s']:.3f} s, phase 17 {par_stats['wall_s']:.1f} s; wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"serving_modes": mode_stats, "int8": int8_stats,
                       "tiny_card_vs_cpu": tiny_modes, "raw_path": raw_stats,
                       "zero_tile": zero_tile, "drivers": driver_stats,
                       "test_bench": bench_stats, "train_cli": cli_stats,
                       "guided": guided_stats, "trainers": trainer_stats,
-                      "video": video_stats}), flush=True)
+                      "video": video_stats,
+                      "parallel": {k: v for k, v in par_stats.items()
+                                   if k not in ("k1", "train_times")}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -4,15 +4,23 @@ reface_tpu/cli/train.py).
 Functional parity target: /root/reference/main.py + train.sh: layered YAML
 with dotlist overrides, the LR scaled by the batch, periodic image and
 sample logging, validation loss with top-k and last checkpoints, a crash
-checkpoint, an on-demand checkpoint on SIGUSR1, and resume. One process and
-one card: the step is pipelines/train.py's, the batches are moved to the
-card here, the checkpoints are ckpt/io.py's directories.
+checkpoint, an on-demand checkpoint on SIGUSR1, and resume. The step is
+pipelines/train.py's, the batches are moved to the card here, the
+checkpoints are ckpt/io.py's directories.
+
+Several processes, one card each, train data-parallel (parallel/mesh.py):
+launched by torchrun, or each given `--coordinator host:port
+--num-processes N --process-id I`. `--batch-size` is per device, the world
+batch `batch_size x world` and the LR `base_lr x world batch`; each process
+loads its slice of every world batch, the gradients are averaged over the
+ranks, and rank 0 alone writes metrics.jsonl, timing.jsonl, the images,
+the samples and the checkpoints. The validation loss is the world batch's
+mean on every rank, so every rank takes the same top-k decision.
 
 Every flag of the JAX driver keeps its name and default, except that
 `--backend` is `--device {cuda,cpu}` (the card unless the CPU is asked for;
-raises without a card), and that a multi-process request (`--coordinator`,
-`--num-processes` > 1, `--process-id` > 0) raises: several processes wait
-for ROADMAP A15.
+raises without a card; with several processes the CPU ranks use gloo, the
+cards NCCL).
 
 Besides metrics.jsonl (the JAX driver's keys), the driver appends to
 timing.jsonl, per step: its wall seconds (the card synchronised at its end),
@@ -23,6 +31,8 @@ resume's load seconds.
 Usage:
   python -m reface_tpu_torch.cli.train --dataset-dir ... --logdir logs/run1 \\
       [--device cpu --tiny --image-size 64 --steps 10]   # smoke
+  torchrun --nproc_per_node 8 -m reface_tpu_torch.cli.train --dataset-dir ... \\
+      --logdir logs/run1                                  # 8 cards
 """
 
 from __future__ import annotations
@@ -104,7 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default; raises without one) or the CPU")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-process training: not ported yet (ROADMAP A15)")
+                    help="multi-process: the coordinator's host:port (rank 0's), "
+                         "with --num-processes and --process-id; torchrun's "
+                         "environment stands in for all three")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--config", nargs="*", default=[],
@@ -116,15 +128,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_multiprocess(args) -> None:
-    if ((args.num_processes or 1) > 1 or (args.process_id or 0) > 0
-            or (args.coordinator is not None and args.num_processes != 1)):
-        raise SystemExit(
-            "cli.train runs one process on one card: multi-process training "
-            "(--coordinator/--num-processes/--process-id) is not ported yet "
-            "(ROADMAP A15)")
-
-
 def _file_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(r, f))
                for r, _, fs in os.walk(path) for f in fs)
@@ -132,7 +135,6 @@ def _file_bytes(path: str) -> int:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_multiprocess(args)
 
     from reface_tpu_torch.ckpt import io as ckpt_io
     from reface_tpu_torch.cli.common import apply_config_node, resolve_device, save_grid_pm1
@@ -145,6 +147,8 @@ def main(argv=None):
         PrefetchLoader,
     )
     from reface_tpu_torch.diffusion.losses import ReconLossConfig
+    from reface_tpu_torch.parallel import create_mesh, init_distributed, shard_batch, shard_params
+    from reface_tpu_torch.parallel.mesh import all_reduce
     from reface_tpu_torch.pipelines.swap import FaceSwapper, SwapConfig, tiny_swap_config
     from reface_tpu_torch.pipelines.train import (
         TrainConfig,
@@ -156,9 +160,19 @@ def main(argv=None):
     )
 
     dev = resolve_device(args)
+    proc_id, proc_count = init_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        local_device="cpu" if dev.type == "cpu" else None)
+    is_main = proc_id == 0
     cuda = dev.type == "cuda"
+    if cuda:  # the card init_distributed chose for this rank
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = create_mesh(device=dev)
+    if proc_count > 1:
+        print(f"[train] process {proc_id}/{proc_count} on {dev}")
+    world_batch = args.batch_size * mesh.size
     # the reference's LR scaling rule: lr = accum x nodes x ngpu x bs x base_lr
-    lr = args.base_lr * args.batch_size
+    lr = args.base_lr * world_batch
 
     swap_cfg = (tiny_swap_config(image_size=args.image_size) if args.tiny
                 else SwapConfig(image_size=args.image_size))
@@ -180,7 +194,7 @@ def main(argv=None):
             recon = apply_config_node(recon or ReconLossConfig(), node["recon"])
 
     step_fn, loss_fn, init_state = make_train_step(swap_cfg, train_cfg, recon=recon,
-                                                   device=dev)
+                                                   device=dev, mesh=mesh)
     # the towers, seeded (LPIPS and the landmark aux head, built from the
     # UNet's feature shapes, where the recon loss asks for them)
     state = init_state(seed=args.seed)
@@ -197,12 +211,14 @@ def main(argv=None):
                   "uses RANDOM AlexNet features, not a perceptual loss")
 
     timing_path = os.path.join(args.logdir, "timing.jsonl")
-    os.makedirs(os.path.join(args.logdir, "checkpoints"), exist_ok=True)
-    os.makedirs(os.path.join(args.logdir, "images"), exist_ok=True)
+    if is_main:  # rank 0 alone writes (main.py's rank-zero callbacks)
+        os.makedirs(os.path.join(args.logdir, "checkpoints"), exist_ok=True)
+        os.makedirs(os.path.join(args.logdir, "images"), exist_ok=True)
 
     def log_timing(rec: dict) -> None:
-        with open(timing_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        if is_main:
+            with open(timing_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
 
     resume_step = 0
     if args.resume:
@@ -237,6 +253,8 @@ def main(argv=None):
                                       ema_decay=train_cfg.ema_decay,
                                       ema_dtype=train_cfg.ema_dtype)
             print(f"[train] resumed params only from {args.resume}")
+        # every rank loaded the files; rank 0's values are the ones kept
+        shard_params(modules, mesh)
         if cuda:
             torch.cuda.synchronize(dev)
         log_timing({"resume_load_s": time.perf_counter() - t_load, "step": state.step,
@@ -270,21 +288,22 @@ def main(argv=None):
 
     def to_batch(raw: dict) -> dict:
         """The loader's numpy batch -> the step's batch on the card."""
-        d = {k: torch.from_numpy(raw[name]).to(dev, non_blocking=True)
-             for k, name in (("target_image", "GT"), ("inpaint_image", "inpaint_image"),
-                             ("inpaint_mask", "inpaint_mask"), ("ref_clip224", "ref_imgs"))}
+        d = shard_batch({k: raw[name] for k, name in (
+            ("target_image", "GT"), ("inpaint_image", "inpaint_image"),
+            ("inpaint_mask", "inpaint_mask"), ("ref_clip224", "ref_imgs"))}, mesh)
         if landmark_fn is not None:
             # a copy: the net's output is an inference-mode tensor
             lm = torch.as_tensor(landmark_fn(d["target_image"]))
             d["landmarks"] = lm.to(dev, torch.float32).clone()
         return d
 
-    loader = PrefetchLoader(dataset("train"), batch_size=args.batch_size, shuffle=True,
-                            seed=args.seed)
+    shards = dict(process_index=proc_id, process_count=proc_count)
+    loader = PrefetchLoader(dataset("train"), batch_size=world_batch, shuffle=True,
+                            seed=args.seed, **shards)
     val_loader = None
     if args.val_every:
         val_loader = PrefetchLoader(dataset("validation", args.val_count),
-                                    batch_size=args.batch_size, shuffle=False)
+                                    batch_size=world_batch, shuffle=False, **shards)
 
     metrics_path = os.path.join(args.logdir, "metrics.jsonl")
     want_ckpt = {"now": False}
@@ -298,6 +317,8 @@ def main(argv=None):
     saved = {"step": None, "path": None}
 
     def checkpoint(tag):
+        if not is_main:
+            return
         path = os.path.join(args.logdir, "checkpoints", tag)
         t = time.perf_counter()
         if saved["step"] != state.step or not link_checkpoint(saved["path"], path):
@@ -320,15 +341,20 @@ def main(argv=None):
             top_k.sort(key=lambda t: t[0])
             while len(top_k) > args.keep_top_k:
                 _, old = top_k.pop()
-                shutil.rmtree(os.path.join(args.logdir, "checkpoints", old),
-                              ignore_errors=True)
+                if is_main:
+                    shutil.rmtree(os.path.join(args.logdir, "checkpoints", old),
+                                  ignore_errors=True)
 
     def val_loss() -> float:
+        """The mean over the validation batches of each world batch's loss
+        (the ranks' slices averaged over the data group)."""
         vlosses = []
         with torch.no_grad():
             for vb in val_loader:
                 gen = torch.Generator(device=dev).manual_seed(99)
-                vlosses.append(float(loss_fn(modules, to_batch(vb), generator=gen)[0]))
+                loss = loss_fn(modules, to_batch(vb), generator=gen)[0]
+                vlosses.append(float(all_reduce(loss.float().clone(), mesh.data_group)
+                                     / mesh.n_data))
         return float(np.mean(vlosses)) if vlosses else float("nan")
 
     def sample(raw_batch, step_no):
@@ -369,21 +395,22 @@ def main(argv=None):
                 log_timing({"step": step, "step_s": t_end - t_wait,
                             "loader_wait_s": t_step - t_wait, "lr": lr_used,
                             **device_memory_stats(dev)})
-                if step % args.log_every == 0:
+                if step % args.log_every == 0 and is_main:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=step, epoch=epoch, sps=step / (time.perf_counter() - t0))
                     with open(metrics_path, "a") as f:
                         f.write(json.dumps(m) + "\n")
                     print(f"[train] {m}")
-                if step % args.image_log_every == 0:
+                if step % args.image_log_every == 0 and is_main:
                     save_grid_pm1(os.path.join(args.logdir, "images", f"inputs_{step:08d}.png"),
                                   [raw_batch["GT"][0], raw_batch["inpaint_image"][0]])
-                if args.sample_log_every and step % args.sample_log_every == 0:
+                if args.sample_log_every and step % args.sample_log_every == 0 and is_main:
                     sample(raw_batch, step)
                 if args.val_every and step % args.val_every == 0:
                     vloss = val_loss()
-                    with open(metrics_path, "a") as f:
-                        f.write(json.dumps({"step": step, "val_loss": vloss}) + "\n")
+                    if is_main:
+                        with open(metrics_path, "a") as f:
+                            f.write(json.dumps({"step": step, "val_loss": vloss}) + "\n")
                     maybe_top_k(vloss, step)
                 if want_ckpt["now"]:
                     want_ckpt["now"] = False
@@ -409,10 +436,11 @@ def main(argv=None):
     else:
         print("[train] --no-final-ckpt: skipping the final 'last' save")
     if step == resume_step:
-        # a silent no-op run is almost always a config error: a batch size
+        # a silent no-op run is almost always a config error: a world batch
         # larger than the dataset slice (the loader drops the ragged batch)
         print(f"[train] WARNING: no steps ran (still at step {step}) — check the "
-              f"batch size against the dataset slice")
+              f"world batch ({args.batch_size} x {mesh.size} processes) against the "
+              f"dataset slice")
     print(f"[train] done at step {step}")
     return state
 

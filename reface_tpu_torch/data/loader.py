@@ -5,7 +5,8 @@ The reference's torch DataLoader workers (main.py:190-265) become a pool of
 threads or of worker processes that decode and collate while the card runs
 the previous batch, behind a bounded prefetch queue. Batches come in the
 dataset's order (or a seeded shuffle per epoch), with a ragged last batch
-unless drop_last.
+unless drop_last. With several processes (parallel/mesh.py), each loads
+only its slice of every global batch.
 """
 
 from __future__ import annotations
@@ -44,11 +45,20 @@ class PrefetchLoader:
 
     worker_mode "process" keeps a pool of spawned processes across
     epochs (close() shuts it down); "thread" makes a thread pool per epoch.
+
+    batch_size is the GLOBAL batch. With process_count > 1 every process
+    walks the same shuffled order but loads only its batch_size /
+    process_count slice of each batch (the DistributedSampler role), the
+    process_index-th.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  num_workers: int = 8, prefetch: int = 4, drop_last: bool = True,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread", process_index: int = 0,
+                 process_count: int = 1):
+        if batch_size % max(process_count, 1):
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode {worker_mode!r}")
         self.dataset = dataset
@@ -59,6 +69,8 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.worker_mode = worker_mode
+        self.process_index = process_index
+        self.process_count = process_count
         self._epoch = 0
         self._pool = None
 
@@ -71,8 +83,10 @@ class PrefetchLoader:
         if self.shuffle:
             rng = np.random.default_rng(np.random.SeedSequence([self.seed, self._epoch]))
             rng.shuffle(idx)
+        local = self.batch_size // self.process_count
+        lo = self.process_index * local
         for b in range(len(self)):
-            yield idx[b * self.batch_size:(b + 1) * self.batch_size]
+            yield idx[b * self.batch_size:(b + 1) * self.batch_size][lo:lo + local]
 
     def _process_pool(self):
         # a pool whose worker died hard is broken for good: replace it here,

@@ -32,6 +32,17 @@ backward passes that accumulate into .grad: the same loss, metrics and
 gradients, with a lower peak memory. TrainConfig.split_acc_dtype "bfloat16"
 rounds the recon portion's gradient to bf16 before the sum, as the JAX step
 does; it saves no memory here.
+
+With a mesh (parallel/mesh.py, make_train_step(mesh=...)) the step computes
+what the JAX step computes on the global batch under GSPMD: each rank holds
+its data slice of the batch, every rank draws the global batch's draws from
+the same generator state and takes its slice, the full loss's flipped
+reference is the global batch's flip (a rank's rows take the mirror data
+rank's references), the trainable gradients and
+the metrics are averaged over the data group after the backward (in flat
+buckets of GRAD_BUCKET elements), and the UNet runs tensor-parallel over the
+model group (parallel/tp.py) when the mesh has one; the gradient clip then
+takes the norm of the whole parameters.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from reface_tpu_torch.nn.lpips import LPIPS
 from reface_tpu_torch.nn.unet import decoder_feature_shapes
 from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR
 from reface_tpu_torch.ops.resize import resize_bilinear_no_aa
+from reface_tpu_torch.parallel.mesh import all_gather, all_reduce, shard_params
 from reface_tpu_torch.pipelines.swap import (
     SwapConfig,
     SwapModules,
@@ -67,7 +79,8 @@ from reface_tpu_torch.pipelines.swap import (
 
 __all__ = ["TrainConfig", "ReconLossConfig", "TrainState", "TrainModules",
            "AdamW", "make_optimizer", "cosine_decay_schedule", "trainable_labels", "named_params", "make_draws",
-           "resolve_train_swap_cfg", "make_train_step", "params_with_ema"]
+           "resolve_train_swap_cfg", "make_train_step", "params_with_ema",
+           "average_grads"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,7 +192,11 @@ class AdamW:
     rate `lr` (a float, or a schedule of the update count), optionally
     behind clip_by_global_norm (grad_clip) and inside optax.MultiSteps
     (accumulate > 1: the running mean of the gradients, one update every
-    `accumulate` calls). The trainers build it through make_optimizer (the
+    `accumulate` calls). Under tensor parallelism (`model_group`, the
+    parameters that parallel/tp.py sharded marked by their `tp_dim`) the
+    clip's norm is the whole parameters': the squares of the sharded leaves
+    summed over the model group, the replicated ones counted once. The
+    trainers build it through make_optimizer (the
     JAX package's adamw with warmup over the trainable parameters),
     cli/distill.py (adam at a constant rate), diffusion/vae_loss.py (adam,
     b1 = 0.5, b2 = 0.9) and cli/train_landmarks.py (adamw under a cosine
@@ -194,8 +211,9 @@ class AdamW:
     def __init__(self, params: dict[str, torch.Tensor], lr, b1: float = 0.9,
                  b2: float = 0.999, weight_decay: float = 0.0,
                  grad_clip: Optional[float] = None, accumulate: int = 1,
-                 mu_dtype: Optional[str] = None):
+                 mu_dtype: Optional[str] = None, model_group=None):
         self.names = list(params)
+        self.model_group = model_group
         self.params = [params[k] for k in self.names]
         self.lr = lr if callable(lr) else (lambda count: lr)
         self.b1, self.b2 = b1, b2
@@ -227,7 +245,7 @@ class AdamW:
             grads = self.acc
         if self.grad_clip:
             # clip_by_global_norm: g if |g| < max else (g / |g|) * max
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(grads)
             clipped = torch._foreach_div(grads, norm)
             torch._foreach_mul_(clipped, float(self.grad_clip))
             keep = norm < self.grad_clip
@@ -266,17 +284,60 @@ class AdamW:
             torch._foreach_zero_(self.acc)
         return True
 
+    def _global_norm(self, grads) -> torch.Tensor:
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.model_group is None:
+            return torch.linalg.vector_norm(norms)
+        sharded = torch.tensor([getattr(p, "tp_dim", None) is not None for p in self.params],
+                               device=norms.device)
+        sq = norms.float() ** 2
+        parts = torch.stack([sq[sharded].sum(), sq[~sharded].sum()])
+        all_reduce(parts[:1], self.model_group)  # a view: reduced in place
+        return parts.sum().sqrt()
 
-def make_optimizer(cfg: TrainConfig, params: dict[str, torch.Tensor]) -> AdamW:
+
+def make_optimizer(cfg: TrainConfig, params: dict[str, torch.Tensor],
+                   model_group=None) -> AdamW:
     """The JAX package's make_optimizer over name -> parameter: optax.adamw
     with a linear warmup over the trainable parameters (frozen ones are
-    never touched: set_to_zero), clipping and MultiSteps as configured."""
+    never touched: set_to_zero), clipping and MultiSteps as configured;
+    model_group: the mesh's, when the UNet is tensor-parallel."""
     labels = trainable_labels(params)
     return AdamW({k: p for k, p in params.items() if labels[k] == "train"},
                  lr=_linear_schedule(cfg.learning_rate * 1e-6, cfg.learning_rate,
                                      cfg.warmup_steps),
                  weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip,
-                 accumulate=cfg.accumulate, mu_dtype=cfg.mu_dtype)
+                 accumulate=cfg.accumulate, mu_dtype=cfg.mu_dtype,
+                 model_group=model_group)
+
+
+# the elements of one flat bucket of the data-parallel gradient all-reduce
+GRAD_BUCKET = 1 << 24
+
+
+@torch.no_grad()
+def average_grads(params, group, n: int) -> None:
+    """Each parameter's .grad replaced by its mean over `group` (n ranks),
+    in flat buckets of at most GRAD_BUCKET elements of one dtype (one tensor
+    above it alone); nothing without a group. Every rank must hold .grad on
+    the same parameters, as the same graph on each rank gives."""
+    if group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    i = 0
+    while i < len(grads):
+        j, size = i + 1, grads[i].numel()
+        while (j < len(grads) and grads[j].dtype == grads[i].dtype
+               and size + grads[j].numel() <= GRAD_BUCKET):
+            size += grads[j].numel()
+            j += 1
+        flat = torch.cat([g.reshape(-1) for g in grads[i:j]])
+        all_reduce(flat, group).div_(n)
+        at = 0
+        for g in grads[i:j]:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        i = j
 
 
 # ---------------------------------------------------------------- the step
@@ -342,8 +403,16 @@ def _nchw(x, device):
 
 
 def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
-                    recon: ReconLossConfig | None = None, device=None):
+                    recon: ReconLossConfig | None = None, device=None, mesh=None):
     """Returns (train_step, loss_fn, init_state), as the JAX package's.
+
+    mesh: a parallel.mesh.Mesh. The batch each rank passes is its data slice
+      of the global batch (B_local rows), `draws` (where given) are the
+      global batch's, and the step is the global batch's (module docstring).
+      init_state broadcasts the towers from data index 0 (shard_params) and,
+      on a model axis, shards the UNet (parallel/tp.py shard_params_tp;
+      TrainState.params() then holds its local shards, gather_params_tp the
+      whole). device defaults to the mesh's.
 
     recon: a ReconLossConfig turns on the full loss (the k-step DDIM
       reconstruction with ID and LPIPS losses); the trainer then holds an
@@ -363,8 +432,9 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
       one optimizer call (in place) and the EMA. train_step.loss_and_grads(
       modules, batch, draws=None, generator=None) -> (loss, metrics) is its
       first half: it leaves the gradients in the parameters' .grad, in as
-      many backward passes as train_cfg.split_grad asks for. At split_grad
-      1 and 2, train_step.recon_backward(modules, batch, draws) ->
+      many backward passes as train_cfg.split_grad asks for (with a mesh,
+      the data group's mean). At split_grad 1 and 2 (these two taking the
+      draws of this rank's rows), train_step.recon_backward(modules, batch, draws) ->
       (loss_r, metrics_r) is the recon portion's backward that the eps
       portion's adds onto, and train_step.recon_cotangents(modules, batch,
       draws) split_grad=2's first stage (the towers' cotangents of the
@@ -378,7 +448,10 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         raise ValueError(f"split_acc_dtype must be 'float32' or 'bfloat16', "
                          f"got {train_cfg.split_acc_dtype!r}")
     swap_cfg = resolve_train_swap_cfg(swap_cfg, train_cfg, recon)
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None or mesh is None else mesh.device)
+    data_group = None if mesh is None else mesh.data_group
+    n_data = 1 if mesh is None else mesh.n_data
+    model_group = None if mesh is None or mesh.n_model == 1 else mesh.model_group
     schedule = DiffusionSchedule.create(timesteps=train_cfg.num_timesteps).to(dev)
     factor = swap_cfg.image_size // swap_cfg.latent_size
     use_lpips = recon is not None and recon.lpips_weight > 0
@@ -392,10 +465,16 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
                 init_params(m, seed=seed + i)
         else:
             modules.load_params(params)
+        if mesh is not None:
+            shard_params(modules, mesh)
+            if mesh.n_model > 1:
+                from reface_tpu_torch.parallel.tp import shard_params_tp
+
+                shard_params_tp(modules, mesh)
         named = named_params(modules)
         for name, label in trainable_labels(named).items():
             named[name].requires_grad_(label == "train")
-        return TrainState.create(modules, make_optimizer(train_cfg, named),
+        return TrainState.create(modules, make_optimizer(train_cfg, named, model_group),
                                  ema_decay=train_cfg.ema_decay,
                                  ema_dtype=train_cfg.ema_dtype)
 
@@ -437,22 +516,47 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
             landmark_head_fn=head if with_head else None,
             z_start9=torch.cat([z, z_in, mask], dim=1),
             cond=c,
-            ref_clip224=ref,
+            ref_clip224=flip_source(ref),
             gt_image=target,
             landmarks=lm,
             t=torch.as_tensor(draws["t"], device=dev).long(),
             noise=_nchw(draws["noise"], dev),
         )
 
+    def flip_source(ref):
+        """The rows whose flip(0) the recon chain takes as its reference.
+        The JAX step flips the global batch (ReconLossConfig.flip_reference),
+        so a rank's rows take theirs from the mirror data rank's rows."""
+        if n_data == 1 or recon is None or not recon.flip_reference:
+            return ref
+        b = ref.shape[0]
+        mirror = n_data - 1 - mesh.data_rank
+        return all_gather(ref, data_group, 0)[mirror * b:(mirror + 1) * b]
+
     def resolve_draws(batch, draws, generator):
-        if draws is not None:
-            return draws
+        """The draws of this rank's rows: with a mesh, the global batch's
+        draws (made, or given) sliced at the rank's data index."""
         b, size = batch["target_image"].shape[:2]
-        return make_draws(b, size // factor, train_cfg, dev, generator)
+        if draws is None:
+            draws = make_draws(b * n_data, size // factor, train_cfg, dev, generator)
+        if mesh is None:
+            return draws
+        if len(draws["t"]) != b * n_data:
+            raise ValueError(f"draws for {len(draws['t'])} rows; the mesh's global "
+                             f"batch is {b} x {n_data}")
+        lo = mesh.data_rank * b
+        return {k: v[lo:lo + b] for k, v in draws.items()}
+
+    def sync(modules) -> None:
+        average_grads(named_params(modules).values(), data_group, n_data)
 
     def loss_fn(modules: TrainModules, batch: dict, draws: dict | None = None,
                 generator: torch.Generator | None = None, portion: str = "both"):
-        p = prep(modules, batch, resolve_draws(batch, draws, generator))
+        return local_loss(modules, batch, resolve_draws(batch, draws, generator), portion)
+
+    def local_loss(modules, batch, draws, portion="both"):
+        """loss_fn on this rank's rows with their draws."""
+        p = prep(modules, batch, draws)
         if recon is None:
             z9, t, noise = p["z_start9"], p["t"], p["noise"]
             z_t = schedule.q_sample(z9[:, :4], t, noise)
@@ -511,9 +615,10 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         in bf16, as JAX's pre-cast bf16 tree carries it. That pullback runs
         the chain's forward again at the bf16 weights, as JAX's does."""
         if split == 1:
-            loss_r, metrics_r = loss_fn(modules, batch, draws, portion="recon")
+            loss_r, metrics_r = local_loss(modules, batch, draws, portion="recon")
             loss_r.backward()
             if acc_bf16:
+                sync(modules)  # the global recon gradient is the one rounded
                 with torch.no_grad():
                     for prm in named_params(modules).values():
                         if prm.grad is not None:
@@ -524,6 +629,13 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
             del pred_latents
             with _bf16_leaves(modules):
                 pullback(collect(modules, batch, draws)[1], cots)
+            if data_group is not None:
+                # the mean of the ranks' bf16 sums, rounded once more
+                sync(modules)
+                with torch.no_grad():
+                    for prm in named_params(modules).values():
+                        if prm.grad is not None:
+                            prm.grad = prm.grad.to(torch.bfloat16).float()
         else:
             pullback(pred_latents, cots)
         return loss_r, metrics_r
@@ -533,20 +645,32 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         """(loss, metrics) with the gradients left in the parameters' .grad
         (set to None first). split_grad > 0: the recon portion's backward
         (recon_backward), then the eps portion's accumulating onto it; the
-        same draws in both."""
+        same draws in both. With a mesh, the gradients and the metrics are
+        the data group's means: the global batch's. With the bf16
+        accumulator the recon portion is averaged before its rounding; the
+        eps portion then adds onto that common value on every rank, and the
+        second average gives it plus the eps portion's mean."""
         for prm in named_params(modules).values():
             prm.grad = None
         draws = resolve_draws(batch, draws, generator)
         if not split:
-            loss, metrics = loss_fn(modules, batch, draws)
+            loss, metrics = local_loss(modules, batch, draws)
             loss.backward()
-            return loss.detach(), metrics
-        loss_r, metrics_r = recon_backward(modules, batch, draws)
-        loss_e, metrics_e = loss_fn(modules, batch, draws, portion="eps")
-        loss_e.backward()
-        # the recon portion's "loss" is its own total; the step's is the sum
-        loss = loss_e.detach() + loss_r
-        return loss, {**metrics_r, **metrics_e, "loss": loss}
+            loss = loss.detach()
+        else:
+            loss_r, metrics_r = recon_backward(modules, batch, draws)
+            loss_e, metrics_e = local_loss(modules, batch, draws, portion="eps")
+            loss_e.backward()
+            # the recon portion's "loss" is its own total; the step's is the sum
+            loss = loss_e.detach() + loss_r
+            metrics = {**metrics_r, **metrics_e, "loss": loss}
+        if mesh is None:
+            return loss, metrics
+        sync(modules)
+        names = sorted(metrics)
+        vals = torch.stack([loss.float()] + [metrics[k].float() for k in names])
+        all_reduce(vals, data_group).div_(n_data)
+        return vals[0], {k: vals[i + 1] for i, k in enumerate(names)}
 
     def train_step(state: TrainState, batch: dict, draws: dict | None = None,
                    generator: torch.Generator | None = None):

@@ -1,7 +1,8 @@
 """The training driver's checkpoints and guards on the CPU, at the tiny
 config: ckpt/io.py's full train state round trip (bit-equal), SIGUSR1's
 on-demand checkpoint and the crash checkpoint of cli/train.py, its refusals
-(no card under --device cuda, a multi-process request), the hard-linked
+(no card under --device cuda, an incomplete or out-of-range multi-process
+request, a world batch the processes do not divide), the hard-linked
 save at an unchanged step and its fallback, core/profiling.py on the CPU
 (also for a CPU device where a card is present), and
 ckpt/from_torch.lpips_state_dict against the JAX
@@ -122,12 +123,30 @@ def test_device_cuda_raises_without_card(tree, tmp_path):
         cli_train.main(["--dataset-dir", tree, "--logdir", str(tmp_path), "--tiny"])
 
 
-@pytest.mark.parametrize("flags", [["--num-processes", "2"], ["--process-id", "1"],
-                                   ["--coordinator", "localhost:1234"]])
-def test_multiprocess_request_raises(tree, tmp_path, flags):
-    with pytest.raises(SystemExit, match="A15"):
+@pytest.mark.parametrize("flags, match", [
+    (["--num-processes", "2"], "needs --coordinator"),
+    (["--process-id", "1"], "needs --coordinator"),
+    (["--coordinator", "localhost:1234"], "needs --num-processes and --process-id"),
+    (["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "2"],
+     "outside the 2 processes"),
+])
+def test_multiprocess_request_raises(tree, tmp_path, monkeypatch, flags, match):
+    """An incomplete or out-of-range multi-process request raises before any
+    process group is started (torchrun's environment absent)."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=match):
         cli_train.main(["--device", "cpu", "--dataset-dir", tree, "--logdir", str(tmp_path),
                         "--tiny", *flags])
+
+
+def test_loader_refuses_indivisible_world_batch():
+    """A global batch the process count does not divide raises, as the JAX
+    loader's."""
+    from reface_tpu_torch.data import PrefetchLoader
+
+    with pytest.raises(ValueError, match="global batch 3 not divisible by 2 processes"):
+        PrefetchLoader(list(range(8)), batch_size=3, process_index=1, process_count=2)
 
 
 @pytest.mark.parametrize("layout", ["module_dump", "alexnet_and_lin"])
