@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from reface_tpu_torch.core.profiling import span
 from reface_tpu_torch.core.schedules import DDIMTables, DiffusionSchedule
 from reface_tpu_torch.diffusion.ddim import ddim_step
 from reface_tpu_torch.nn.arcface import CLIP_MEAN, CLIP_STD
@@ -148,19 +149,20 @@ def reface_losses(
     total = 0.0
 
     if portion in ("both", "eps"):
-        x9 = torch.cat([schedule.q_sample(z4, t, noise), rest], dim=1)
-        use_lm_head = (cfg.landmark_weight > 0 and unet_features_fn is not None
-                       and landmark_head_fn is not None and landmarks is not None)
-        if use_lm_head:
-            eps_pred, features = unet_features_fn(x9, t, cond)
-            # the two 64x64 320-channel decoder taps of the full UNet;
-            # clamped for reduced test configs
-            i0 = min(9, len(features) - 2)
-            lm_pred = landmark_head_fn(torch.cat([features[i0], features[i0 + 1]], dim=1))
-            loss_landmark = torch.mean((lm_pred - landmarks) ** 2)
-        else:
-            eps_pred = unet_fn(x9, t, cond)
-        loss_simple = torch.mean((noise - eps_pred) ** 2)
+        with span("train.eps"):
+            x9 = torch.cat([schedule.q_sample(z4, t, noise), rest], dim=1)
+            use_lm_head = (cfg.landmark_weight > 0 and unet_features_fn is not None
+                           and landmark_head_fn is not None and landmarks is not None)
+            if use_lm_head:
+                eps_pred, features = unet_features_fn(x9, t, cond)
+                # the two 64x64 320-channel decoder taps of the full UNet;
+                # clamped for reduced test configs
+                i0 = min(9, len(features) - 2)
+                lm_pred = landmark_head_fn(torch.cat([features[i0], features[i0 + 1]], dim=1))
+                loss_landmark = torch.mean((lm_pred - landmarks) ** 2)
+            else:
+                eps_pred = unet_fn(x9, t, cond)
+            loss_simple = torch.mean((noise - eps_pred) ** 2)
         metrics["loss_simple"] = loss_simple
         total = total + loss_simple
         if use_lm_head:
@@ -189,16 +191,17 @@ def recon_collect(*, unet_fn, conditioning_fn, schedule: DiffusionSchedule,
                   t, noise):
     """The k-step DDIM reconstruction chain from t_new = T-1 with the SAME
     noise the eps-MSE used. Returns (pred_latents tuple, ref_flip)."""
-    z4, rest = z_start9[:, :4], z_start9[:, 4:]
-    t_new = schedule.num_timesteps - 1
-    z_noisy = schedule.q_sample(z4, torch.full_like(t, t_new), noise)
-    if cfg.flip_reference:
-        ref_flip = ref_clip224.flip(0)
-        recon_cond = conditioning_fn(ref_flip, landmarks)
-    else:
-        ref_flip, recon_cond = ref_clip224, cond
-    pred_latents, _ = ddim_reconstruct(unet_fn, z_noisy, rest, recon_cond,
-                                       schedule, k=cfg.ddim_steps, t_new=t_new)
+    with span("train.recon"):
+        z4, rest = z_start9[:, :4], z_start9[:, 4:]
+        t_new = schedule.num_timesteps - 1
+        z_noisy = schedule.q_sample(z4, torch.full_like(t, t_new), noise)
+        if cfg.flip_reference:
+            ref_flip = ref_clip224.flip(0)
+            recon_cond = conditioning_fn(ref_flip, landmarks)
+        else:
+            ref_flip, recon_cond = ref_clip224, cond
+        pred_latents, _ = ddim_reconstruct(unet_fn, z_noisy, rest, recon_cond,
+                                           schedule, k=cfg.ddim_steps, t_new=t_new)
     return tuple(pred_latents), ref_flip
 
 
@@ -208,41 +211,42 @@ def recon_tower_losses(*, decode_fn, embed_id_fn, lpips_fn,
     """Decode the collected latents and apply the ID and LPIPS towers.
     Returns (weighted recon total, metrics). The towers are frozen, so this
     differentiates only with respect to pred_latents."""
-    metrics = {}
-    total = 0.0
-    n_dec = len(pred_latents)
-    s = gt_image.shape[-1]
-    mask_img = 1.0 - upsample_keep_mask(rest[:, -1:], s)  # 1 = inpaint region
-    # the reference back to [-1,1] pixel space (un-CLIP-norm, then x2-1)
-    r = lambda a: torch.as_tensor(a, device=ref_flip.device).reshape(1, 3, 1, 1)
-    ref_pm1 = (ref_flip * r(CLIP_STD) + r(CLIP_MEAN)) * 2.0 - 1.0
-    with torch.no_grad():
-        f_ref = embed_id_fn(ref_pm1)  # the reference is embedded once
+    with span("train.towers"):
+        metrics = {}
+        total = 0.0
+        n_dec = len(pred_latents)
+        s = gt_image.shape[-1]
+        mask_img = 1.0 - upsample_keep_mask(rest[:, -1:], s)  # 1 = inpaint region
+        # the reference back to [-1,1] pixel space (un-CLIP-norm, then x2-1)
+        r = lambda a: torch.as_tensor(a, device=ref_flip.device).reshape(1, 3, 1, 1)
+        ref_pm1 = (ref_flip * r(CLIP_STD) + r(CLIP_MEAN)) * 2.0 - 1.0
+        with torch.no_grad():
+            f_ref = embed_id_fn(ref_pm1)  # the reference is embedded once
 
-    # scales where AlexNet's stride-4 conv and max pools do not collapse to
-    # zero-size maps; the 512 px protocol's scales (512/256/128) all pass
-    use_lpips = lpips_fn is not None and cfg.lpips_weight > 0
-    scales = [f for f in cfg.lpips_scales if s // f >= 32] if use_lpips else []
-    gt_scaled = [avg_pool_to(gt_image, s // f) for f in scales]
+        # scales where AlexNet's stride-4 conv and max pools do not collapse to
+        # zero-size maps; the 512 px protocol's scales (512/256/128) all pass
+        use_lpips = lpips_fn is not None and cfg.lpips_weight > 0
+        scales = [f for f in cfg.lpips_scales if s // f >= 32] if use_lpips else []
+        gt_scaled = [avg_pool_to(gt_image, s // f) for f in scales]
 
-    def tower_body(pred):
-        dec = decode_fn(pred)  # (B, 3, s, s)
-        f_pred = embed_id_fn(dec * mask_img)
-        idc = torch.mean(1.0 - torch.sum(f_pred * f_ref, dim=-1))
-        lps = [torch.mean(lpips_fn(avg_pool_to(dec, s // f), g))
-               for f, g in zip(scales, gt_scaled)]
-        return torch.stack([idc] + lps)
+        def tower_body(pred):
+            dec = decode_fn(pred)  # (B, 3, s, s)
+            f_pred = embed_id_fn(dec * mask_img)
+            idc = torch.mean(1.0 - torch.sum(f_pred * f_ref, dim=-1))
+            lps = [torch.mean(lpips_fn(avg_pool_to(dec, s // f), g))
+                   for f, g in zip(scales, gt_scaled)]
+            return torch.stack([idc] + lps)
 
-    # one decode's towers at a time, recomputed in the backward: memory is
-    # bounded by a single decode's backward
-    sums = sum(checkpoint(tower_body, pred, use_reentrant=False)
-               if torch.is_grad_enabled() and pred.requires_grad else tower_body(pred)
-               for pred in pred_latents)
-    id_loss = sums[0] / n_dec  # mean over decodes of per-decode means
-    metrics["id_loss"] = id_loss
-    total = total + cfg.id_weight * id_loss
-    if use_lpips:
-        lp = torch.sum(sums[1:])  # sum over decodes x scales of means
-        metrics["lpips_loss"] = lp
-        total = total + cfg.lpips_weight * lp
-    return total, metrics
+        # one decode's towers at a time, recomputed in the backward: memory is
+        # bounded by a single decode's backward
+        sums = sum(checkpoint(tower_body, pred, use_reentrant=False)
+                   if torch.is_grad_enabled() and pred.requires_grad else tower_body(pred)
+                   for pred in pred_latents)
+        id_loss = sums[0] / n_dec  # mean over decodes of per-decode means
+        metrics["id_loss"] = id_loss
+        total = total + cfg.id_weight * id_loss
+        if use_lpips:
+            lp = torch.sum(sums[1:])  # sum over decodes x scales of means
+            metrics["lpips_loss"] = lp
+            total = total + cfg.lpips_weight * lp
+        return total, metrics

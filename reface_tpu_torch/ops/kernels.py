@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from reface_tpu_torch.core import profiling
+
 __all__ = ["BUILD_DIR", "SOURCES", "DTYPE_CODE", "BUILD_SECONDS", "build", "library",
            "library_path", "check", "count_launch", "refuse_grad"]
 
@@ -149,8 +151,11 @@ def refuse_grad(what: str, route: str, *tensors) -> None:
 def count_launch(wrapper, shape: tuple) -> None:
     """Add one to `wrapper.launches`, called where the wrapper launches its
     kernel. While `wrapper.shapes` is a Counter (chip_smoke.py sets one to
-    survey a path), the call's shape is counted there too."""
+    survey a path), the call's shape is counted there too. The innermost
+    open span of the process (core/profiling.py), whichever thread opened
+    it, counts the launch under the wrapper's name."""
     wrapper.launches += 1
     if wrapper.shapes is not None:
         wrapper.shapes[shape] += 1
+    profiling.count_kernel(wrapper.__name__)
 

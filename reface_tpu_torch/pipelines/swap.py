@@ -14,7 +14,9 @@ and expression terms of diffusion/guidance.py.
 The public `FaceSwapper.swap` keeps the JAX package's layout at its
 boundary: NHWC (B,512,512,3) images in [-1,1] in and out. Inside, the port
 is NCHW. It runs on CUDA unless the caller passes device="cpu"; it never
-drops to the CPU by itself.
+drops to the CPU by itself. While a profiler runs, `swap` records the spans
+`swap.condition`, `swap.encode`, `swap.sample` and `swap.decode` under
+`swap` (core/profiling.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import math
 
 import torch
 
+from reface_tpu_torch.core.profiling import span
 from reface_tpu_torch.core.schedules import DDIMTables, DiffusionSchedule
 from reface_tpu_torch.diffusion.ddim import ddim_sample
 from reface_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
@@ -291,38 +294,43 @@ class FaceSwapper(SwapModules):
         cfg, dev = self.config, self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        target = _nchw(target_image, dev)
-        c, uc = self.build_context(_nchw(ref_clip224, dev), target,
-                                   None if landmarks is None
-                                   else torch.as_tensor(landmarks, device=dev))
-        z_inpaint = self.encode_latent(
-            _nchw(inpaint_image, dev), generator if cfg.sample_posterior else None)
-        b, hw = target.shape[0], cfg.latent_size
-        mask_latent = resize_bilinear_no_aa(_nchw(inpaint_mask, dev), hw, hw)
-        if x_T is not None:
-            x_T = _nchw(x_T, dev)
-        elif prior_image is not None:
-            z_p = self.encode_latent(_nchw(prior_image, dev), generator)
-            t0 = torch.full((b,), cfg.start_noise_t, dtype=torch.long)
-            noise = torch.randn(z_p.shape, generator=generator, device=dev)
-            x_T = self.schedule.q_sample(z_p, t0, noise)
-        else:
-            x_T = torch.randn((b, 4, hw, hw), generator=generator, device=dev)
-        # the dedup's cfg_expand bypasses unet_eps: the tiles win over it
-        dedup = (self.unet_eps_cfg_dedup if cfg.cfg_dedup and not cfg.unet_tile
-                 else None)
-        args = (self.unet_eps, x_T, c, uc, z_inpaint, mask_latent, self.tables,
-                cfg.cfg_scale)
-        if cfg.sampler == "plms":
-            z = plms_sample(*args)
-        elif cfg.sampler == "dpm":
-            z = dpm_solver_sample(*args, cfg_steps=cfg.cfg_steps or None,
-                                  dedup_model_fn=dedup)
-        else:
-            z = ddim_sample(*args, eta=cfg.eta,
-                            generator=generator if cfg.eta != 0 else None,
-                            cfg_steps=cfg.cfg_steps or None, dedup_model_fn=dedup)
-        return self.decode_latent(z).permute(0, 2, 3, 1).contiguous()
+        with span("swap"):
+            with span("swap.condition"):
+                target = _nchw(target_image, dev)
+                c, uc = self.build_context(_nchw(ref_clip224, dev), target,
+                                           None if landmarks is None
+                                           else torch.as_tensor(landmarks, device=dev))
+            with span("swap.encode"):
+                z_inpaint = self.encode_latent(
+                    _nchw(inpaint_image, dev), generator if cfg.sample_posterior else None)
+                b, hw = target.shape[0], cfg.latent_size
+                mask_latent = resize_bilinear_no_aa(_nchw(inpaint_mask, dev), hw, hw)
+                if x_T is not None:
+                    x_T = _nchw(x_T, dev)
+                elif prior_image is not None:
+                    z_p = self.encode_latent(_nchw(prior_image, dev), generator)
+                    t0 = torch.full((b,), cfg.start_noise_t, dtype=torch.long)
+                    noise = torch.randn(z_p.shape, generator=generator, device=dev)
+                    x_T = self.schedule.q_sample(z_p, t0, noise)
+                else:
+                    x_T = torch.randn((b, 4, hw, hw), generator=generator, device=dev)
+            # the dedup's cfg_expand bypasses unet_eps: the tiles win over it
+            dedup = (self.unet_eps_cfg_dedup if cfg.cfg_dedup and not cfg.unet_tile
+                     else None)
+            args = (self.unet_eps, x_T, c, uc, z_inpaint, mask_latent, self.tables,
+                    cfg.cfg_scale)
+            with span("swap.sample"):
+                if cfg.sampler == "plms":
+                    z = plms_sample(*args)
+                elif cfg.sampler == "dpm":
+                    z = dpm_solver_sample(*args, cfg_steps=cfg.cfg_steps or None,
+                                          dedup_model_fn=dedup)
+                else:
+                    z = ddim_sample(*args, eta=cfg.eta,
+                                    generator=generator if cfg.eta != 0 else None,
+                                    cfg_steps=cfg.cfg_steps or None, dedup_model_fn=dedup)
+            with span("swap.decode"):
+                return self.decode_latent(z).permute(0, 2, 3, 1).contiguous()
 
     def swap_guided(self, target_image, inpaint_image, inpaint_mask, ref_clip224,
                     landmarks=None, generator: torch.Generator | None = None, x_T=None,

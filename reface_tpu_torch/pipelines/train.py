@@ -43,6 +43,13 @@ the metrics are averaged over the data group after the backward (in flat
 buckets of GRAD_BUCKET elements), and the UNet runs tensor-parallel over the
 model group (parallel/tp.py) when the mesh has one; the gradient clip then
 takes the norm of the whole parameters.
+
+While a profiler runs, `train_step` records the spans of core/profiling.py:
+`train.step` holds `train.forward` (itself holding `train.prep` and, in
+diffusion/losses.py, `train.eps`, `train.recon` and `train.towers`),
+`train.backward` (each backward pass, split_grad's included) and
+`train.update` (AdamW and the EMA). The split steps' forwards and backwards
+reuse the names.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from typing import Optional
 import torch
 
 from reface_tpu_torch.core.ema import EmaState, ema_update
+from reface_tpu_torch.core.profiling import span
 from reface_tpu_torch.core.schedules import DiffusionSchedule
 from reface_tpu_torch.diffusion.losses import (
     ReconLossConfig,
@@ -486,22 +494,23 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         """The preprocessing every loss portion shares, and the towers'
         closures. Deterministic in (parameters, batch, draws), so each
         split-grad pass rebuilds identical values."""
-        target = _nchw(batch["target_image"], dev)
-        hw = target.shape[-1] // factor
-        ref = _nchw(batch["ref_clip224"], dev)
-        lm = batch.get("landmarks")
-        lm = None if lm is None else torch.as_tensor(lm, device=dev)
-        tar224 = clip_normalize(un_norm(target))
-        c = modules.conditioner(ref, tar224, lm)
-        uc = modules.conditioner.null_conditioning(c.shape[0])
-        # CFG dropout: per-sample swap to the null token
-        drop = torch.as_tensor(draws["drop"], device=dev).reshape(-1, 1, 1)
-        c = torch.where(drop, uc, c)
-        with torch.no_grad():  # the frozen VAE: JAX's stop_gradient
-            z = posterior_sample(modules, target, _nchw(draws["eps_target"], dev))
-            z_in = posterior_sample(modules, _nchw(batch["inpaint_image"], dev),
-                                    _nchw(draws["eps_inpaint"], dev))
-        mask = resize_bilinear_no_aa(_nchw(batch["inpaint_mask"], dev), hw, hw)
+        with span("train.prep"):
+            target = _nchw(batch["target_image"], dev)
+            hw = target.shape[-1] // factor
+            ref = _nchw(batch["ref_clip224"], dev)
+            lm = batch.get("landmarks")
+            lm = None if lm is None else torch.as_tensor(lm, device=dev)
+            tar224 = clip_normalize(un_norm(target))
+            c = modules.conditioner(ref, tar224, lm)
+            uc = modules.conditioner.null_conditioning(c.shape[0])
+            # CFG dropout: per-sample swap to the null token
+            drop = torch.as_tensor(draws["drop"], device=dev).reshape(-1, 1, 1)
+            c = torch.where(drop, uc, c)
+            with torch.no_grad():  # the frozen VAE: JAX's stop_gradient
+                z = posterior_sample(modules, target, _nchw(draws["eps_target"], dev))
+                z_in = posterior_sample(modules, _nchw(batch["inpaint_image"], dev),
+                                        _nchw(draws["eps_inpaint"], dev))
+            mask = resize_bilinear_no_aa(_nchw(batch["inpaint_mask"], dev), hw, hw)
 
         head = modules.landmark_head
         with_head = want_lm_head and head is not None
@@ -556,15 +565,17 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
 
     def local_loss(modules, batch, draws, portion="both"):
         """loss_fn on this rank's rows with their draws."""
-        p = prep(modules, batch, draws)
-        if recon is None:
-            z9, t, noise = p["z_start9"], p["t"], p["noise"]
-            z_t = schedule.q_sample(z9[:, :4], t, noise)
-            eps = p["unet_fn"](torch.cat([z_t, z9[:, 4:]], dim=1), t, p["cond"])
-            loss = torch.mean((noise - eps) ** 2)
-            return loss, {"loss_simple": loss.detach()}
-        loss, metrics = reface_losses(schedule=schedule, cfg=recon, portion=portion, **p)
-        return loss, {k: v.detach() for k, v in metrics.items()}
+        with span("train.forward"):
+            p = prep(modules, batch, draws)
+            if recon is None:
+                with span("train.eps"):
+                    z9, t, noise = p["z_start9"], p["t"], p["noise"]
+                    z_t = schedule.q_sample(z9[:, :4], t, noise)
+                    eps = p["unet_fn"](torch.cat([z_t, z9[:, 4:]], dim=1), t, p["cond"])
+                    loss = torch.mean((noise - eps) ** 2)
+                return loss, {"loss_simple": loss.detach()}
+            loss, metrics = reface_losses(schedule=schedule, cfg=recon, portion=portion, **p)
+            return loss, {k: v.detach() for k, v in metrics.items()}
 
     split = (train_cfg.split_grad if recon is not None
              and (recon.id_weight > 0 or recon.lpips_weight > 0) else 0)
@@ -587,19 +598,22 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         latents with the chain's graph, [(i, cotangent)]): the towers'
         backward gives the cotangent of each latent i that depends on a
         trainable parameter."""
-        p, pred_latents, ref_flip = collect(modules, batch, draws)
-        leaves = [x.detach().requires_grad_(x.requires_grad) for x in pred_latents]
-        loss_r, metrics_r = recon_tower_losses(
-            decode_fn=p["decode_fn"], embed_id_fn=p["embed_id_fn"],
-            lpips_fn=p["lpips_fn"], cfg=recon, pred_latents=leaves,
-            ref_flip=ref_flip, rest=p["z_start9"][:, 4:], gt_image=p["gt_image"])
-        loss_r.backward()
+        with span("train.forward"):
+            p, pred_latents, ref_flip = collect(modules, batch, draws)
+            leaves = [x.detach().requires_grad_(x.requires_grad) for x in pred_latents]
+            loss_r, metrics_r = recon_tower_losses(
+                decode_fn=p["decode_fn"], embed_id_fn=p["embed_id_fn"],
+                lpips_fn=p["lpips_fn"], cfg=recon, pred_latents=leaves,
+                ref_flip=ref_flip, rest=p["z_start9"][:, 4:], gt_image=p["gt_image"])
+        with span("train.backward"):
+            loss_r.backward()
         cots = [(i, leaf.grad) for i, leaf in enumerate(leaves) if leaf.grad is not None]
         return (loss_r.detach(), {k: v.detach() for k, v in metrics_r.items()},
                 pred_latents, cots)
 
     def pullback(pred_latents, cots) -> None:
-        torch.autograd.backward([pred_latents[i] for i, _ in cots], [g for _, g in cots])
+        with span("train.backward"):
+            torch.autograd.backward([pred_latents[i] for i, _ in cots], [g for _, g in cots])
 
     def recon_backward(modules, batch, draws):
         """The recon portion's backward of a split step, its gradients left
@@ -616,7 +630,8 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         the chain's forward again at the bf16 weights, as JAX's does."""
         if split == 1:
             loss_r, metrics_r = local_loss(modules, batch, draws, portion="recon")
-            loss_r.backward()
+            with span("train.backward"):
+                loss_r.backward()
             if acc_bf16:
                 sync(modules)  # the global recon gradient is the one rounded
                 with torch.no_grad():
@@ -628,7 +643,9 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         if acc_bf16:
             del pred_latents
             with _bf16_leaves(modules):
-                pullback(collect(modules, batch, draws)[1], cots)
+                with span("train.forward"):
+                    pred_latents = collect(modules, batch, draws)[1]
+                pullback(pred_latents, cots)
             if data_group is not None:
                 # the mean of the ranks' bf16 sums, rounded once more
                 sync(modules)
@@ -655,12 +672,14 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
         draws = resolve_draws(batch, draws, generator)
         if not split:
             loss, metrics = local_loss(modules, batch, draws)
-            loss.backward()
+            with span("train.backward"):
+                loss.backward()
             loss = loss.detach()
         else:
             loss_r, metrics_r = recon_backward(modules, batch, draws)
             loss_e, metrics_e = local_loss(modules, batch, draws, portion="eps")
-            loss_e.backward()
+            with span("train.backward"):
+                loss_e.backward()
             # the recon portion's "loss" is its own total; the step's is the sum
             loss = loss_e.detach() + loss_r
             metrics = {**metrics_r, **metrics_e, "loss": loss}
@@ -674,10 +693,12 @@ def make_train_step(swap_cfg: SwapConfig, train_cfg: TrainConfig,
 
     def train_step(state: TrainState, batch: dict, draws: dict | None = None,
                    generator: torch.Generator | None = None):
-        loss, metrics = loss_and_grads(state.modules, batch, draws, generator)
-        state.opt.step([p.grad for p in state.opt.params])
-        if state.ema is not None:
-            ema_update(state.ema, dict(state.modules.unet.named_parameters()))
+        with span("train.step"):
+            loss, metrics = loss_and_grads(state.modules, batch, draws, generator)
+            with span("train.update"):
+                state.opt.step([p.grad for p in state.opt.params])
+                if state.ema is not None:
+                    ema_update(state.ema, dict(state.modules.unet.named_parameters()))
         state.step += 1
         return state, {**metrics, "loss": loss}
 

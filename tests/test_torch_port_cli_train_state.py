@@ -28,7 +28,7 @@ from reface_tpu.nn.lpips import LPIPS as JLPIPS
 from reface_tpu_torch.ckpt import from_jax
 from reface_tpu_torch.ckpt import io as ckpt_io
 from reface_tpu_torch.ckpt.from_torch import lpips_state_dict
-from reface_tpu_torch.core.profiling import StepTimer, device_memory_stats, trace
+from reface_tpu_torch.core.profiling import device_memory_stats, span, trace
 from reface_tpu_torch.cli import train as cli_train
 from reface_tpu_torch.data.synthetic import make_synthetic_celeba
 from reface_tpu_torch.nn.lpips import LPIPS
@@ -171,16 +171,13 @@ def test_lpips_state_dict_matches_convert_lpips(layout):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """core/profiling.py without a card: StepTimer's steps/s at its sample
-    points, a Chrome trace written under the directory, no memory stats."""
-    timer = StepTimer(sync_every=2)
-    timer.start()
-    assert timer.step() is None
-    sps = timer.step()
-    assert sps is not None and sps > 0 and timer.history == [sps]
+    """core/profiling.py without a card: a Chrome trace written under the
+    directory that holds a span recorded inside it, no memory stats."""
     with trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+        with span("cpu.sum"):
+            torch.ones(8).sum()
+    doc = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert any(e.get("ph") == "X" and e["name"] == "cpu.sum" for e in doc["traceEvents"])
     assert device_memory_stats() == {}
 
 
