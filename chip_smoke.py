@@ -32,6 +32,11 @@ UNet forward, one VAE encode and decode, and one fused UNet forward. Then:
      (flash_attention_fwd_plain, one bf16 ulp) and bit-equal to the residual
      forward; K3 also at a tiny shape and at groups too large for a
      cluster's shared memory, into NaN-filled outputs, two calls bit-equal;
+     K3 without the SiLU at the swap benchmark's shapes (batch 10), the
+     VAE's 512 px levels on the streaming path included (bf16 held in ulps
+     of each |y|), and GroupNorm32's unfused norm taking it without
+     autograd (a channels-last input too) and the plain version under
+     autograd;
      each timed with CUDA events beside its bound (bytes, tensor
      operations or exp2s), its plain version and one PyTorch library call,
      K3 also by the profiler's device time and the host's enqueue per call;
@@ -311,9 +316,9 @@ from reface_tpu_torch.nn.conditioner import REFaceConditioner
 from reface_tpu_torch.nn.landmarks import LandmarkNet, LandmarkNetConfig
 from reface_tpu_torch.nn.lpips import LPIPS
 from reface_tpu_torch.nn.safety import SafetyChecker, SafetyCheckerConfig
-from reface_tpu_torch.nn.unet import UNetModel
+from reface_tpu_torch.nn.unet import UNetConfig, UNetModel
 from reface_tpu_torch.nn.vae import SD_SCALE_FACTOR, AutoencoderKL, VAEConfig
-from reface_tpu_torch.nn.layers import CrossAttention, FeedForwardGEGLU
+from reface_tpu_torch.nn.layers import CrossAttention, FeedForwardGEGLU, GroupNorm32
 from reface_tpu_torch.ops import attention as PA
 from reface_tpu_torch.ops import kernels
 from reface_tpu_torch.ops.attention import wide_attention
@@ -357,9 +362,10 @@ REQUESTS = 2
 UNET_PARAMS = 859_535_364  # UNetConfig(): SD-v1 UNet with the 9-channel conv_in
 # Launches the plan of the slice expects, against which the survey is held.
 # K1: the SpatialTransformers at 64x64 and 32x32 latents (2 + 3 at each);
-# K2: the VAE encoder's and decoder's mid-block; K3: two norms in each of the
-# 22 ResBlocks and the output norm.
-PLANNED = {"K1 per UNet forward": 10, "K2 per swap": 2, "K3 per fused UNet forward": 45}
+# K2: the VAE encoder's and decoder's mid-block; K3: every GroupNorm32 of a
+# forward without autograd, fused or not: two norms in each of the 22
+# ResBlocks, the output norm and the 16 SpatialTransformers' norms.
+PLANNED = {"K1 per UNet forward": 10, "K2 per swap": 2, "K3 per UNet forward": 61}
 
 # Tolerances of kernel vs plain version. fp32: both sides in full fp32 (TF32
 # off), only summation order differs. bf16: the outputs are bf16 (one ulp is
@@ -398,6 +404,16 @@ K1_PLAN_1024 = {40: 5, 80: 5, 160: 5}
 # conditioner 7.2e-4 (its output is mostly the fp32 ID projection).
 TOWER_TOL = {"UNet": 3e-2, "UNet fused": 3e-2, "VAE encode": 3e-2,
              "VAE decode": 3e-2, "conditioner": 2e-3}
+# K3 with silu=False, as GroupNorm32's unfused norm takes it without
+# autograd (ops/groupnorm.py::group_norm), at shapes of the swap benchmark's
+# batch of 10: UNet norms of the CFG-deduplicated forward (10 and 20 rows)
+# and the VAE decoder's 512 px levels, which take the streaming path.
+K3_UNFUSED_SHAPES = ((10, 320, 64, 64), (20, 960, 64, 64), (20, 2560, 16, 16),
+                     (10, 256, 512, 512), (10, 128, 512, 512))
+# bf16 K3 there is held in bf16 ulps of each |y| (one ulp of 4 below |y| = 4:
+# TOL's 2^-5), since outputs at those sizes reach |y| >= 8, where one ulp is
+# 2^-4; and to REL_TOL_BF16
+K3_ULPS, K3_ULP_FLOOR = 1, 4.0
 # K3 beyond the fused UNet's shapes, in both dtypes: a tiny tensor (one CTA
 # a group), and groups too large for a cluster's shared memory in fp32
 # ((2,960,128,128): a fused UNet at 1024 px; in bf16 it stays resident, 8
@@ -446,9 +462,10 @@ def fwd_key_tile(d: int) -> int:
 
 # Launches per training step, in KERNELS order: under remat the forward of
 # each of the 10 flash self-attentions runs twice; K4 and K5 once each in
-# the backward; K2 once per VAE encode (target and masked target); no K1, no
-# K3 (fused_groupnorm is off in SwapConfig()).
-TRAIN_PLAN = (0, 2, 0, 20, 10, 10)
+# the backward; K2 once per VAE encode (target and masked target), which
+# runs without autograd, and K3 once per GroupNorm32 of each encode (22);
+# no K1; the UNet's norms run under autograd, on the plain version.
+TRAIN_PLAN = (0, 2, 44, 20, 10, 10)
 # Phase 6 tolerances, kernel vs plain version on the same inputs. fp32: full
 # fp32 on both sides, only summation order differs (seen <= 6e-7). bf16: the
 # outputs are bf16 and P and dS are rounded to bf16 at the same places on
@@ -679,8 +696,9 @@ def survey(swapper, cfg: SwapConfig):
     """Kernel call shapes of the main path, as the kernel wrappers record
     them: K1 (BH, N, D) in one UNet forward with CFG dedup at batch 2, K2
     (BH, N, M, D) in one VAE encode and decode (one swap's), K3 (B, C, H, W)
-    in one UNet forward at batch 2 of a fused copy with the same weights.
-    Each total is held to PLANNED."""
+    in one UNet forward at batch 2 of a fused copy with the same weights
+    (its SpatialTransformers' norms unfused). Each total is held to
+    PLANNED."""
     fused = UNetModel(dataclasses.replace(cfg.unet, fused_groupnorm=True), device="cuda")
     fused.load_state_dict(swapper.unet.state_dict())
     x9, t, ctx2 = unet_inputs(cfg, seed=3, ctx_batch=2 * BATCH)
@@ -717,6 +735,13 @@ def within(name, kind, out, ref, dt):
     err, rel = errors(out, ref)
     ok = out.dtype == dt and err <= TOL[name][kind] and (kind == "fp32" or rel <= REL_TOL_BF16)
     return err, rel, ok
+
+
+def ulps_off_bf16(out, ref, floor: float) -> float:
+    """The largest |out - ref| in bf16 ulps of each |ref| (8 significant
+    bits), the ulp taken at no less than `floor`."""
+    ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(floor))) - 7)
+    return float(((out.float() - ref.float()).abs() / ulp).max())
 
 
 def ulp_bf16(ref) -> float:
@@ -997,6 +1022,70 @@ def check_groupnorm(shapes, gen):
             "library_device_ms": total["library_device_ms"], "per_shape": per_shape}
 
 
+def check_groupnorm_unfused(gen) -> dict:
+    """K3 with silu=False against group_norm_silu_plain at K3_UNFUSED_SHAPES,
+    fp32 and bf16, eps 1e-5 and 1e-6, into NaN-filled outputs; and
+    GroupNorm32's unfused norm on the same input: under inference_mode one
+    K3 launch, bit-equal to the direct call, also on a channels-last copy;
+    under autograd no launch, bit-equal to the plain version. fp32 is held
+    to TOL, bf16 to K3_ULPS ulps of each |y| and to REL_TOL_BF16. Returns
+    the worst errors."""
+    worst = {"fp32": 0.0, "bf16": 0.0, "rel": 0.0, "ulps": 0.0}
+    for shape in K3_UNFUSED_SHAPES:
+        c = shape[1]
+        gn = GroupNorm32(c, device="cuda")
+        with torch.no_grad():
+            gn.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda"))
+            gn.bias.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+        w, b = gn.weight.detach(), gn.bias.detach()
+        for kind, dt in DTYPES.items():
+            x = (2.0 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dt)
+            for eps in (1e-5, 1e-6):
+                gn.eps = eps
+                with nan_filled_outputs():
+                    out = group_norm_silu(x, w, b, 32, eps, False)
+                ref = group_norm_silu_plain(x, w, b, 32, eps, False)
+                err, rel = errors(out, ref)
+                if kind == "fp32":
+                    ok = err <= TOL["K3"]["fp32"]
+                else:
+                    ulps = ulps_off_bf16(out, ref, K3_ULP_FLOOR)
+                    ok = ulps <= K3_ULPS and rel <= REL_TOL_BF16
+                    worst["rel"] = max(worst["rel"], rel)
+                    worst["ulps"] = max(worst["ulps"], ulps)
+                if not ok or out.dtype != dt:
+                    fail(f"K3 (silu=False) disagrees with its plain version at {shape} {kind} "
+                         f"eps={eps}: {err:.3e}, rel L2 {rel:.3e}"
+                         + (f", {ulps:.2f} bf16 ulps of |y|" if kind == "bf16" else ""))
+                worst[kind] = max(worst[kind], err)
+                for layout in ("contiguous", "channels-last"):
+                    xi = x if layout == "contiguous" else x.to(memory_format=torch.channels_last)
+                    before = group_norm_silu.launches
+                    with torch.inference_mode():
+                        routed = gn(xi)
+                    if group_norm_silu.launches - before != 1 or not torch.equal(routed, out):
+                        fail(f"GroupNorm32 ({layout}) at {shape} {kind} eps={eps} under "
+                             f"inference_mode: {group_norm_silu.launches - before} K3 launches, "
+                             f"bit-equal to K3 {torch.equal(routed, out)}")
+                xg = x.detach().requires_grad_()
+                before = group_norm_silu.launches
+                plain = gn(xg)
+                if group_norm_silu.launches != before or not torch.equal(plain.detach(), ref):
+                    fail(f"GroupNorm32 at {shape} {kind} eps={eps} under autograd did not take "
+                         f"the plain version")
+                del xg, plain
+            del x
+        torch.cuda.empty_cache()
+    print(f"  K3 silu=False at {list(K3_UNFUSED_SHAPES)}, fp32 and bf16, eps 1e-5 and 1e-6: "
+          f"max_abs_err fp32 {worst['fp32']:.3e} (tol {TOL['K3']['fp32']:.0e}), bf16 "
+          f"{worst['bf16']:.3e}, {worst['ulps']:.2f} bf16 ulps of |y| (tol {K3_ULPS}, the ulp "
+          f"at no less than |y| = {K3_ULP_FLOOR:g}), bf16 rel L2 {worst['rel']:.3e} (tol "
+          f"{REL_TOL_BF16:.0e}); GroupNorm32 one K3 launch without autograd (channels-last "
+          f"too), bit-equal; the plain version under autograd", flush=True)
+    return {"max_abs_err": worst["bf16"], "max_abs_err_fp32": worst["fp32"],
+            "ulps_bf16": worst["ulps"], "rel_l2_err": worst["rel"]}
+
+
 # ------------------------------------------------------------------ phases 3-5
 
 def make_request(r: int, size: int, dev, batch: int = BATCH):
@@ -1036,6 +1125,7 @@ def build_swapper(cfg: SwapConfig):
 def serve(swapper, cfg: SwapConfig, k1_per_forward: int, k2_per_swap: int):
     dev = torch.device("cuda")
     want_k1 = cfg.ddim_steps * k1_per_forward
+    want_k3 = mode_plan(cfg, cfg.ddim_steps)["K3"]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the main path's run starts here
     lat = []
@@ -1055,9 +1145,9 @@ def serve(swapper, cfg: SwapConfig, k1_per_forward: int, k2_per_swap: int):
               f"K3 +{d[2]}", flush=True)
         if not ok:
             fail(f"request {r}: output not finite (B,512,512,3) in [-1,1]")
-        if d[0] != want_k1 or d[1] != k2_per_swap:
+        if d[0] != want_k1 or d[1] != k2_per_swap or d[2] != want_k3:
             fail(f"request {r}: K1 launched {d[0]} times (want {want_k1}), "
-                 f"K2 {d[1]} (want {k2_per_swap})")
+                 f"K2 {d[1]} (want {k2_per_swap}), K3 {d[2]} (want {want_k3})")
     main_launches = counts()
     peak = torch.cuda.max_memory_allocated()
     steady = lat[1:] or lat
@@ -1280,13 +1370,81 @@ def unet_forwards(cfg: SwapConfig, steps: int) -> collections.Counter:
     return collections.Counter({pair: n_cfg, "cond": steps - n_cfg})
 
 
+def norm_shapes(fn) -> collections.Counter:
+    """(B, C, H, W) of each GroupNorm32 call in fn(), counted by a forward
+    pre-hook while fn runs modules built on the meta device. On the card
+    each call launches K3 once where autograd records nothing (ops/
+    groupnorm.py::group_norm), and the plain version where it records."""
+    seen = collections.Counter()
+
+    def hook(module, args):
+        if isinstance(module, GroupNorm32):
+            seen[tuple(args[0].shape)] += 1
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        handle.remove()
+    return seen
+
+
+_NORMS: dict = {}  # the meta runs' counts, by what they were run at
+
+
+def _memo(key, run) -> collections.Counter:
+    if key not in _NORMS:
+        _NORMS[key] = run()
+    return collections.Counter(_NORMS[key])
+
+
+def unet_norms(u, rows: int, latent: int, dedup: bool = False) -> collections.Counter:
+    """K3's launches by shape in one UNet forward of `rows` latents (dedup:
+    the rows doubled at the first context read). Fused or int8, the norms
+    see the same shapes: the meta copy is the plain UNet."""
+    def run():
+        unet = UNetModel(dataclasses.replace(u, fused_groupnorm=False, quant="none"),
+                         device="meta")
+        meta = functools.partial(torch.zeros, device="meta")
+        ctx = meta((2 * rows if dedup else rows, 1, u.context_dim))
+        return norm_shapes(lambda: unet(meta((rows, u.in_channels, latent, latent)),
+                                        meta((rows,), dtype=torch.long), ctx, cfg_expand=dedup))
+
+    return _memo(("unet", repr(u), rows, latent, dedup), run)
+
+
+def vae_norms(v: VAEConfig, batch: int, size: int):
+    """K3's launches by shape in one VAE encode of `batch` size x size
+    images and in one decode of their latents: (encode, decode)."""
+    vae = AutoencoderKL(dataclasses.replace(v, quant="none"), device="meta")
+    lat = size // 2 ** (len(v.ch_mult) - 1)
+    key = (repr(v), batch, size)
+    return (_memo(("encode", *key), lambda: norm_shapes(
+                lambda: vae.encode(torch.zeros(batch, 3, size, size, device="meta")))),
+            _memo(("decode", *key), lambda: norm_shapes(
+                lambda: vae.decode(torch.zeros(batch, v.embed_dim, lat, lat, device="meta")))))
+
+
+def landmark_norms(lcfg: LandmarkNetConfig, batch: int) -> collections.Counter:
+    """K3's launches by shape in one LandmarkNet forward at `batch`."""
+    net = LandmarkNet(lcfg, device="meta")
+    s = lcfg.input_size
+    return norm_shapes(lambda: net(torch.zeros(batch, 3, s, s, device="meta")))
+
+
+def scaled(c, k: int) -> collections.Counter:
+    return collections.Counter({key: k * v for key, v in c.items()})
+
+
 def mode_plan(cfg: SwapConfig, steps: int, batch: int = BATCH) -> dict:
     """Launches of one request, from the config: K1 by (BH, N, D) (each
     self-attention of 512 tokens or more, in order: 2 x num_res_blocks + 1
     SpatialTransformers at each attention level, the middle block's; under
     the dedup the first runs at the half batch), K2 by (BH, N, M, D) (the
     VAE encoder's and decoder's mid-block, over all VAE tiles in one call),
-    K3 (45 norms a fused forward)."""
+    K3 by count and, as "K3 shapes", by (B, C, H, W) (every GroupNorm32 of
+    the UNet's forwards, the encode and the decode: all without autograd)."""
     u = cfg.unet
     tiled = cfg.unet_tile and cfg.latent_size > cfg.unet_tile
     lat = cfg.unet_tile if tiled else cfg.latent_size
@@ -1295,11 +1453,12 @@ def mode_plan(cfg: SwapConfig, steps: int, batch: int = BATCH) -> dict:
     attn = [(lat // 2**i, u.channel_mult[i], (2 * u.num_res_blocks + 1) * u.transformer_depth)
             for i in range(levels) if 2**i in u.attention_resolutions]
     attn.append((lat // 2 ** (levels - 1), u.channel_mult[-1], u.transformer_depth))  # middle
-    k1 = collections.Counter()
+    k1, k3 = collections.Counter(), collections.Counter()
     forwards = unet_forwards(cfg, steps)
     for kind, count in forwards.items():
         rows = {"pair": 2 * batch * t, "dedup": 2 * batch, "cond": batch * t}[kind]
         first = kind == "dedup"
+        k3 += scaled(unet_norms(u, rows // 2 if first else rows, lat, dedup=first), count)
         for side, mult, blocks in attn:
             n, d = side**2, u.model_channels * mult // u.num_heads
             for _ in range(blocks):
@@ -1310,9 +1469,10 @@ def mode_plan(cfg: SwapConfig, steps: int, batch: int = BATCH) -> dict:
     tv = n_tiles(cfg.latent_size, cfg.vae_tile, cfg.vae_tile_stride or cfg.vae_tile // 2)
     d2 = cfg.vae.ch * cfg.vae.ch_mult[-1]
     k2 = collections.Counter({(batch * tv, vae_lat**2, vae_lat**2, d2): 2})
-    per_fwd = 2 * (len(u.channel_mult) * (2 * u.num_res_blocks + 1) + 2) + 1
-    k3 = per_fwd * sum(forwards.values()) if u.fused_groupnorm else 0
-    return {"K1": k1, "K2": k2, "K3": k3, "forwards": sum(forwards.values())}
+    enc, dec = vae_norms(cfg.vae, batch * tv, vae_lat * 2 ** (len(cfg.vae.ch_mult) - 1))
+    k3 += enc + dec
+    return {"K1": k1, "K2": k2, "K3": sum(k3.values()), "K3 shapes": k3,
+            "forwards": sum(forwards.values())}
 
 
 def int8_layers(module) -> list:
@@ -1861,6 +2021,8 @@ def raw_path(params: dict) -> dict:
     target, source = raw_frames(30, BATCH, RAW_SIZE, RAW_SIZE), raw_frames(31, BATCH, RAW_SIZE,
                                                                           RAW_SIZE)
     plan = mode_plan(cfg, cfg.ddim_steps)
+    # LandmarkNet three times a request (target, source, the swap-size crop)
+    plan["K3"] += 3 * sum(landmark_norms(pipe.config.landmark, BATCH).values())
     lat = []
     torch.cuda.reset_peak_memory_stats()
     for r in range(2):
@@ -1900,6 +2062,8 @@ def raw_path(params: dict) -> dict:
     src4 = source[:1].expand(ROBUST_BATCH, -1, -1, -1)
     ref224 = pipe._source_reference(src4)
     plan4 = mode_plan(cfg, cfg.ddim_steps, batch=ROBUST_BATCH)
+    # one_program: LandmarkNet once a batch, on the swap-size crops
+    lm4 = sum(landmark_norms(pipe.config.landmark, ROBUST_BATCH).values())
     pipe.swap_images_robust(frames[0], src4)  # warm-up at this batch and frame size
     stats["robust"] = {}
     for one_program in (True, False):
@@ -1914,7 +2078,8 @@ def raw_path(params: dict) -> dict:
                 state=state, one_program=one_program, ref224=ref224 if r else None)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            launches = raw_request_launches(f"robust one_program={one_program} batch {r}", plan4)
+            launches = raw_request_launches(f"robust one_program={one_program} batch {r}",
+                                            dict(plan4, K3=plan4["K3"] + lm4 * one_program))
             passthrough = [] if r else [0]
             check_raw_output(f"robust one_program={one_program} batch {r}", out, frames[r],
                              quads, passthrough)
@@ -2228,6 +2393,9 @@ def drivers_path(cpu_params: dict, smi: str) -> dict:
     (the counts set to 0 before each run and read after it)."""
     cfg = SwapConfig()
     plan = mode_plan(cfg, cfg.ddim_steps, batch=DRIVER_BATCH)
+    # raw mode: LandmarkNet three times a request (target, source, the crop)
+    raw_plan = dict(plan, K3=plan["K3"] + 3 * sum(
+        landmark_norms(RawPipelineConfig().landmark, DRIVER_BATCH).values()))
     d = Path(__file__).resolve().parent / "build" / "chip_smoke_drivers"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -2312,7 +2480,7 @@ def drivers_path(cpu_params: dict, smi: str) -> dict:
         start_request()  # the raw driver's run starts here
         torch.cuda.reset_peak_memory_stats()
         done = cli_swap.main(argv)
-        launches = driver_launches("cli.swap raw", plan, len(done))
+        launches = driver_launches("cli.swap raw", raw_plan, len(done))
         peak = torch.cuda.max_memory_allocated()
         shapes = [images.imread(p).shape for p, _ in done]
         if shapes != [(RAW_SIZE, RAW_SIZE, 3)] * 2:
@@ -2344,7 +2512,7 @@ def drivers_path(cpu_params: dict, smi: str) -> dict:
                     fail(f"demo server's PNG is {img.shape}")
                 lat.append(secs)
                 responses.append(img)
-            launches = driver_launches("demo server", plan, len(uploads))
+            launches = driver_launches("demo server", raw_plan, len(uploads))
         peak = torch.cuda.max_memory_allocated()
         print(f"  demo server (raw, --safety-ckpt that flags nothing): 3 multipart POSTs of "
               f"{RAW_SIZE} px JPEG pairs, status 200, PNGs of {responses[0].shape}; latency "
@@ -2668,10 +2836,11 @@ def guided_steps(cfg: SwapConfig, terms) -> int:
 
 def guided_plan(cfg: SwapConfig, terms, batch: int, extra_k2: int = 0) -> dict:
     """Launches of one guided request by wrapper and shape, from the config:
-    the swap's K1 and K2 (mode_plan: the UNet runs under no_grad, the encode
-    and the final decode through K2), and at each guided step one decode
-    under autograd through FlashAttention at the VAE's d=512: the residual
-    forward, then one K4 and one K5 call (two launches) in the backward."""
+    the swap's K1, K2 and K3 (mode_plan: the UNet runs under no_grad, the
+    encode and the final decode through K2; `extra_k2` more encodes), and at
+    each guided step one decode under autograd through FlashAttention at the
+    VAE's d=512 (its norms on the plain version): the residual forward, then
+    one K4 and one K5 call (two launches) in the backward."""
     p = mode_plan(cfg, cfg.ddim_steps, batch=batch)
     n = cfg.latent_size**2
     wide = (batch, n, n, cfg.vae.ch * cfg.vae.ch_mult[-1])
@@ -2679,10 +2848,11 @@ def guided_plan(cfg: SwapConfig, terms, batch: int, extra_k2: int = 0) -> dict:
     k2[wide] += extra_k2
     steps = guided_steps(cfg, terms) if terms else 0
     flash = {wide: steps} if steps else {}
+    k3 = p["K3 shapes"] + scaled(vae_norms(cfg.vae, batch, cfg.image_size)[0], extra_k2)
     nonzero = lambda c: {k: v for k, v in c.items() if v}
     return {"self_attention_smalld": nonzero(p["K1"]), "wide_attention": nonzero(k2),
-            "group_norm_silu": {}, "flash_attention_fwd": flash, "flash_bwd_dkv": flash,
-            "flash_bwd_dq": flash}
+            "group_norm_silu": nonzero(k3), "flash_attention_fwd": flash,
+            "flash_bwd_dkv": flash, "flash_bwd_dq": flash}
 
 
 @contextlib.contextmanager
@@ -3164,8 +3334,12 @@ def guided_path(cpu_params: dict, smi: str, gen) -> dict:
                 got = {}
                 with recorded_launches(got):
                     done = cli_swap.main(argv)
-                launches = check_plan(f"cli.swap --guidance ({mode})", got,
-                                      guided_plan(cfg10, ALL_TERMS, 1))
+                plan = guided_plan(cfg10, ALL_TERMS, 1)
+                if mode == "raw":  # LandmarkNet on the target, the source and the crop
+                    plan["group_norm_silu"] = dict(collections.Counter(plan["group_norm_silu"])
+                                                   + scaled(landmark_norms(
+                                                       RawPipelineConfig().landmark, 1), 3))
+                launches = check_plan(f"cli.swap --guidance ({mode})", got, plan)
                 files.append(images.imread(done[0][0]))
                 secs.append(done[0][1])
             peak = torch.cuda.max_memory_allocated()
@@ -3190,14 +3364,19 @@ def guided_path(cpu_params: dict, smi: str, gen) -> dict:
         k1_fwd = mode_plan(dataclasses.replace(cfg, cfg_scale=1.0), 1, batch=1)["K1"]
         n = cfg.latent_size**2
         feats_per_pair = 2 * 4  # two images, an ensemble of 4 forwards each
+        # K3: tps, LandmarkNet on each image; dift, each image's encode and
+        # its 4 UNet forwards at batch 1
+        dift_k3 = scaled(vae_norms(cfg.vae, 1, cfg.image_size)[0], 2 * PRIOR_PAIRS) + scaled(
+            unet_norms(cfg.unet, 1, cfg.latent_size), feats_per_pair * PRIOR_PAIRS)
         prior_plans = {
-            "tps": {k.__name__: {} for k in KERNELS},
+            "tps": {**{k.__name__: {} for k in KERNELS}, "group_norm_silu": dict(
+                scaled(landmark_norms(LandmarkNetConfig(), 1), 2 * PRIOR_PAIRS))},
             "dift": {"self_attention_smalld": {k: feats_per_pair * PRIOR_PAIRS * c
                                                for k, c in k1_fwd.items() if c},
                      "wide_attention": {(1, n, n, cfg.vae.ch * cfg.vae.ch_mult[-1]):
                                         2 * PRIOR_PAIRS},
-                     "group_norm_silu": {}, "flash_attention_fwd": {}, "flash_bwd_dkv": {},
-                     "flash_bwd_dq": {}}}
+                     "group_norm_silu": dict(dift_k3), "flash_attention_fwd": {},
+                     "flash_bwd_dkv": {}, "flash_bwd_dq": {}}}
         extra = {"tps": ["--landmark-ckpt", str(paths["landmarks"])], "dift": ckpt}
         for method in ("tps", "dift"):
             reset_counts()
@@ -3681,7 +3860,10 @@ def full_loss_plan(recon, batch: int) -> dict:
     are collected and decoded: the noisy input, which depends on no parameter
     (one forward, no backward), and the first and last pred_x0 (under the
     towers' checkpoint: forward twice, K4 and K5 once). The two VAE encodes
-    run without gradients through K2. No K1, no K3. The plan counts wrapper
+    run without gradients through K2. K3 for each GroupNorm32 of the two
+    encodes and of the noisy input's decode (no autograd records them); the
+    UNet's and the other decodes' norms take the plain version. No K1. The
+    plan counts wrapper
     calls: at d=512 flash_attention_bwd makes one flash_bwd_dq call of two
     launches (dS and P, then dQ = dS K: K5's row owns the shared dS/P
     launch) and one flash_bwd_dkv call of one (dV and dK from them)."""
@@ -3689,10 +3871,11 @@ def full_loss_plan(recon, batch: int) -> dict:
     unet = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
     wide = (batch, 4096, 4096, 512)
     n_dec, n_grad = 3, 2
+    enc, dec = vae_norms(VAEConfig(), batch, 512)
     return {
         "self_attention_smalld": {},
         "wide_attention": {wide: 2},
-        "group_norm_silu": {},
+        "group_norm_silu": dict(scaled(enc, 2) + dec),
         "flash_attention_fwd": {**{k: 2 * c * passes for k, c in unet.items()},
                                 wide: n_dec + n_grad},
         "flash_bwd_dkv": {**{k: c * passes for k, c in unet.items()}, wide: n_grad},
@@ -3967,10 +4150,13 @@ def val_loss_plan(recon, batch: int) -> dict:
     """Launches of one validation batch of the full loss under no_grad: each
     UNet pass's 10 flash self-attentions once (no remat without a graph),
     the three collected latents decoded once each through FlashAttention at
-    d=512 (the training VAE's decoder), the two encodes through K2."""
+    d=512 (the training VAE's decoder), the two encodes through K2; K3 for
+    every GroupNorm32 of them all."""
     passes = 1 + recon.ddim_steps
     wide = (batch, 4096, 4096, 512)
-    return {"self_attention_smalld": {}, "wide_attention": {wide: 2}, "group_norm_silu": {},
+    enc, dec = vae_norms(VAEConfig(), batch, 512)
+    k3 = scaled(enc, 2) + scaled(dec, 3) + scaled(unet_norms(UNetConfig(), batch, 64), passes)
+    return {"self_attention_smalld": {}, "wide_attention": {wide: 2}, "group_norm_silu": dict(k3),
             "flash_attention_fwd": {(8 * batch, 4096, 4096, 40): 5 * passes,
                                     (8 * batch, 1024, 1024, 80): 5 * passes, wide: 3},
             "flash_bwd_dkv": {}, "flash_bwd_dq": {}}
@@ -3983,15 +4169,16 @@ def sample_plan(cfg: SwapConfig) -> dict:
                   batch=SAMPLE_BATCH)
     nonzero = lambda c: {k: v for k, v in c.items() if v}
     return {"self_attention_smalld": nonzero(p["K1"]), "wide_attention": nonzero(p["K2"]),
-            "group_norm_silu": {}, "flash_attention_fwd": {}, "flash_bwd_dkv": {},
-            "flash_bwd_dq": {}}
+            "group_norm_silu": dict(p["K3 shapes"]), "flash_attention_fwd": {},
+            "flash_bwd_dkv": {}, "flash_bwd_dq": {}}
 
 
 def eps_step_plan(batch: int) -> dict:
     """Launches of one eps-MSE step (phase 7's TRAIN_PLAN) by wrapper and shape."""
     unet = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
     return {"self_attention_smalld": {}, "wide_attention": {(batch, 4096, 4096, 512): 2},
-            "group_norm_silu": {}, "flash_attention_fwd": {k: 2 * c for k, c in unet.items()},
+            "group_norm_silu": dict(scaled(vae_norms(VAEConfig(), batch, 512)[0], 2)),
+            "flash_attention_fwd": {k: 2 * c for k, c in unet.items()},
             "flash_bwd_dkv": unet, "flash_bwd_dq": unet}
 
 
@@ -4458,11 +4645,15 @@ def distill_step_plan(batch: int, k: int) -> dict:
     """Launches of one distillation step of round 0 (CFG folding): the two
     VAE encodes through K2; the teacher window's k UNet forwards at the CFG
     batch 2B without gradients (the flash forward, once each); the student's
-    forward under remat (twice) and its backward."""
+    forward under remat (twice) and its backward. K3 for each GroupNorm32 of
+    the encodes and of the teacher's forwards; the student's take the plain
+    version."""
     teacher = {(16 * batch, 4096, 4096, 40): 5 * k, (16 * batch, 1024, 1024, 80): 5 * k}
     student = {(8 * batch, 4096, 4096, 40): 5, (8 * batch, 1024, 1024, 80): 5}
+    k3 = scaled(vae_norms(VAEConfig(), batch, 512)[0], 2) + scaled(
+        unet_norms(UNetConfig(), 2 * batch, 64), k)
     return {"self_attention_smalld": {}, "wide_attention": {(batch, 4096, 4096, 512): 2},
-            "group_norm_silu": {},
+            "group_norm_silu": dict(k3),
             "flash_attention_fwd": {**teacher, **{s: 2 * c for s, c in student.items()}},
             "flash_bwd_dkv": student, "flash_bwd_dq": student}
 
@@ -4471,9 +4662,11 @@ def vae_step_plan() -> dict:
     """Launches of one VAE trainer step: the generator pass's encode and
     decode through FlashAttention (forward once each, the decoder's attention
     outside its remat), their backward; the discriminator pass's encode
-    through K2 and its decode's flash forward. No K2 under autograd."""
+    through K2 and its decode's flash forward, both without autograd, so K3
+    for each of their GroupNorm32s. No K2 under autograd."""
+    enc, dec = vae_norms(VAEConfig(), VAE_BATCH, VAE_SIZE)
     return {"self_attention_smalld": {}, "wide_attention": {VAE_WIDE: 1},
-            "group_norm_silu": {}, "flash_attention_fwd": {VAE_WIDE: 3},
+            "group_norm_silu": dict(enc + dec), "flash_attention_fwd": {VAE_WIDE: 3},
             "flash_bwd_dkv": {VAE_WIDE: 2}, "flash_bwd_dq": {VAE_WIDE: 2}}
 
 
@@ -4677,10 +4870,11 @@ def distill_path(cpu_params: dict, d: Path, smi: str, gen) -> dict:
           f"student's attention flash vs einsum (the teacher's flash): loss {loss_f:.6f} vs "
           f"{loss_e:.6f} (rel {rel_loss:.3e}, tol {DISTILL_TOL['loss']:.0e}), student gradient "
           f"rel L2 {rel_grad:.3e} (tol {DISTILL_TOL['grad']:.0e}); launches in the einsum step "
-          f"(K1, K2, K3, K2r, K4, K5) {ran} (the teacher's {10 * DISTILL_K} K2r only); the "
+          f"(K1, K2, K3, K2r, K4, K5) {ran} (the teacher's {10 * DISTILL_K} K2r and "
+          f"{61 * DISTILL_K} K3 only); the "
           f"teacher window {window_ms:.1f} ms of a {step_ms:.1f} ms step "
           f"({100 * window_ms / step_ms:.1f}%)", flush=True)
-    if ran != (0, 0, 0, 10 * DISTILL_K, 0, 0) or not (
+    if ran != (0, 0, 61 * DISTILL_K, 10 * DISTILL_K, 0, 0) or not (
             rel_window <= DISTILL_TOL["window"] and rel_loss <= DISTILL_TOL["loss"]
             and rel_grad <= DISTILL_TOL["grad"]):
         fail("the distillation step with flash attention disagrees with einsum")
@@ -4814,8 +5008,10 @@ def vae_tiny_reference() -> dict:
           f"({n_card}), the CPU port in fp32 {w_cpu:.3e} ({n_cpu}), limit {lim:.3e} (the "
           f"larger of {VAE_TINY_ABS:.0e} and {VAE_TINY_FP64}x the CPU's); "
           f"launches (K1, K2, K3, K2r, K4, K5) {launched}", flush=True)
-    if launched != (0, 1, 0, 3, 2, 2) or not (rel_m <= TRAINER_TINY_TOL["loss"]
-                                              and w_card <= lim):
+    # K3: every GroupNorm32 of the discriminator pass, which runs without autograd
+    enc, dec = vae_norms(vcfg, 2, 256)
+    planned = (0, 1, sum((enc + dec).values()), 3, 2, 2)
+    if launched != planned or not (rel_m <= TRAINER_TINY_TOL["loss"] and w_card <= lim):
         fail("the card's tiny VAE trainer step disagrees with the CPU port")
     return {"metrics_rel": rel_m, "grad_rel_l2_vs_fp64": w_card,
             "cpu_fp32_grad_rel_l2_vs_fp64": w_cpu, "limit": lim}
@@ -5117,6 +5313,9 @@ def video_path(cpu_params: dict, smi: str) -> dict:
                                       method=cfg.ddim_discretize).timesteps)
         one = guided_plan(dataclasses.replace(cfg, ddim_steps=steps), (), VIDEO_BATCH)
         plan = {k: {sh: c * batches for sh, c in v.items()} for k, v in one.items()}
+        # LandmarkNet once for the source, then twice a batch (frames, crops)
+        plan["group_norm_silu"] = dict(collections.Counter(plan["group_norm_silu"]) + scaled(
+            landmark_norms(RawPipelineConfig().landmark, VIDEO_BATCH), 1 + 2 * batches))
         RawSwapPipeline.face_presence = video_presence
         try:
             reset_counts()  # the video path's run starts here
@@ -5687,7 +5886,7 @@ def main():
     k1_shapes, k2_shapes, k3_shapes = survey(swapper, cfg)
     k1_per_fwd, k2_per_swap, k3_per_fwd = PLANNED.values()
     print(f"  main-path shapes as the wrappers recorded them: K1 per UNet forward "
-          f"{dict(k1_shapes)}, K2 per swap {dict(k2_shapes)}, K3 per fused forward "
+          f"{dict(k1_shapes)}, K2 per swap {dict(k2_shapes)}, K3 per UNet forward "
           f"{k3_per_fwd} calls over {len(k3_shapes)} shapes (the planned counts)", flush=True)
 
     print("phase 2: kernels against their plain versions on the card", flush=True)
@@ -5703,6 +5902,7 @@ def main():
                                (8, 1000, 1100, 40), (4, 1000, 1100, 80)], gen),
         "K3": check_groupnorm(k3_shapes, gen),
     }
+    entries["K3"]["unfused"] = check_groupnorm_unfused(gen)
     entries["K1"]["d160"] = time_k1_wide(gen)
     entries["K1"]["d160"]["unet_1024_launches"] = {
         str(k): v for k, v in unet_forward_1024(swapper, cfg).items()}
@@ -5865,9 +6065,10 @@ def main():
                "one swap (VAE encode + decode): "
                + ", ".join(f"{k}x(BH,N,M,D)={s}" for s, k in k2_shapes.items())),
         "K3": ("group_norm_silu", "reface_tpu_torch/csrc/groupnorm.cu",
-               "reface_tpu/ops/groupnorm.py:80", k3_launches,
-               f"one fused UNet forward at batch {BATCH}: {k3_per_fwd} calls over "
-               f"{len(k3_shapes)} shapes"),
+               "reface_tpu/ops/groupnorm.py:80", main_launches[2],
+               f"{REQUESTS} requests of the main path: {k3_per_fwd} a UNet forward (the fused "
+               f"copy's {k3_launches}, over {len(k3_shapes)} shapes), an encode's and a "
+               f"decode's"),
     }
     rows = []
     for key, (name, src, repl, launches, work) in meta.items():

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reface_tpu_torch.ops.attention import multi_head_attention
-from reface_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+from reface_tpu_torch.ops.groupnorm import group_norm, group_norm_silu
 from reface_tpu_torch.ops.quant import (
     QUANT_MODES,
     cached_weight,
@@ -118,6 +118,9 @@ class GroupNorm32(nn.Module):
 
     fuse_silu=True returns SiLU(GroupNorm(x)) through kernel K3
     (ops/groupnorm.py) on the card; callers then skip their own SiLU.
+    fuse_silu=False returns GroupNorm(x) through ops/groupnorm.py::group_norm:
+    K3 on the card where autograd records nothing, the plain version where
+    it does (K3 has no backward).
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, fuse_silu: bool = False,
@@ -135,8 +138,7 @@ class GroupNorm32(nn.Module):
             # SpatialTransformer's proj_out) may hand back channels-last
             return group_norm_silu(x.contiguous(), self.weight, self.bias,
                                    self.groups, self.eps, silu=True)
-        return group_norm_silu_plain(x, self.weight, self.bias, self.groups,
-                                     self.eps, silu=False)
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps)
 
 
 class LayerNorm(nn.LayerNorm):

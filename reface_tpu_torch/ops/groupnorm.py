@@ -6,7 +6,9 @@ memory, the partial statistics merged through distributed shared memory
 (`cluster_plan` cuts the group). On a CPU tensor it computes the plain
 two-pass version, `group_norm_silu_plain`, the semantics of
 reface_tpu/ops/groupnorm.py:_reference_impl. Statistics are fp32; the
-output comes back in the input dtype.
+output comes back in the input dtype. `group_norm` is the norm without the
+SiLU: K3 on the card where autograd records nothing, the plain version
+under autograd and on the CPU.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import functools
 
 import torch
 
+from reface_tpu_torch.core import profiling
 from reface_tpu_torch.ops import kernels
 
-__all__ = ["group_norm_silu", "group_norm_silu_plain", "cluster_plan"]
+__all__ = ["group_norm", "group_norm_silu", "group_norm_silu_plain", "cluster_plan"]
 
 # csrc/groupnorm.cu's kSliceBytes (the shared memory a resident slice may
 # take) and the portable cluster size
@@ -61,6 +64,24 @@ def cluster_plan(group_len: int, itemsize: int) -> tuple[int, int, bool]:
 @functools.cache
 def _entry():
     return kernels.library("groupnorm").reface_group_norm
+
+
+def group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5):
+    """NCHW GroupNorm without SiLU (GroupNorm32's unfused norm). Returns x.dtype.
+
+    On the card, where autograd records nothing (grad mode off, or neither
+    x nor scale nor bias requires grad), K3 computes it in one launch and
+    raises where it cannot take x (group_norm_silu's conditions). Under
+    autograd, and on the CPU, the plain version does; on the card each such
+    call counts as `group_norm_plain` in the open span (core/profiling.py).
+    Both routes take two-pass fp32 statistics and an fp32 affine, and round
+    once to x.dtype."""
+    if not x.is_cuda:
+        return group_norm_silu_plain(x, scale, bias, groups, eps, silu=False)
+    if not kernels.records_grad(x, scale, bias):
+        return group_norm_silu(x.contiguous(), scale, bias, groups, eps, silu=False)
+    profiling.count_kernel("group_norm_plain")
+    return group_norm_silu_plain(x, scale, bias, groups, eps, silu=False)
 
 
 def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5,

@@ -24,7 +24,7 @@ import torch
 from reface_tpu_torch.core import profiling
 
 __all__ = ["BUILD_DIR", "SOURCES", "DTYPE_CODE", "BUILD_SECONDS", "build", "library",
-           "library_path", "check", "count_launch", "refuse_grad"]
+           "library_path", "check", "count_launch", "records_grad", "refuse_grad"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -139,11 +139,17 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an op on these tensors: grad mode is on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def refuse_grad(what: str, route: str, *tensors) -> None:
     """Raise where autograd would need a gradient through a kernel that has
     none: its output would come back detached and the gradient into its
     inputs would be silently zero. `route` names the differentiable way."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if records_grad(*tensors):
         raise RuntimeError(f"{what}: the kernel has no backward, and an input "
                            f"requires grad; {route}")
 

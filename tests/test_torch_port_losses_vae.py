@@ -21,8 +21,10 @@ from reface_tpu.diffusion import losses as JLoss
 from reface_tpu.ops.attention import _flash_attention as j_flash
 from reface_tpu_torch.core.schedules import DiffusionSchedule
 from reface_tpu_torch.diffusion import losses as PLoss
+from reface_tpu_torch.nn.layers import GroupNorm32
 from reface_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
 from reface_tpu_torch.ops import attention as PA
+from reface_tpu_torch.ops import groupnorm as PG
 from reface_tpu_torch.pipelines import train as PT
 from reface_tpu_torch.pipelines.swap import tiny_swap_config as p_tiny
 
@@ -108,9 +110,12 @@ def test_vae_attention_routing(monkeypatch):
     """The VAE built for training (VAEConfig.remat) sends its decoder's
     mid-block attention to FlashAttention, in a first pass without gradients
     as in one with them; the serving VAE and both encoders go to K2
-    (wide_attention). Meta tensors that claim to be on the card, with the
-    wrappers replaced by recorders."""
-    calls = []
+    (wide_attention). Every GroupNorm of the passes without gradients goes
+    to K3 (without the SiLU), none of the pass with them. Meta tensors that
+    claim to be on the card, with the wrappers replaced by recorders."""
+    calls, k3 = [], []
+    monkeypatch.setattr(PG, "group_norm_silu",
+                        lambda x, scale, bias, groups, eps, silu: k3.append(silu) or x)
     monkeypatch.setattr(PA, "wide_attention",
                         lambda q, k, v, scale: calls.append(("k2", tuple(q.shape))) or q)
     monkeypatch.setattr(PA.FlashAttention, "apply",
@@ -126,7 +131,10 @@ def test_vae_attention_routing(monkeypatch):
         serving.encode(img)
         training.decode(z)
         training.encode(img)
+    norms = sum(isinstance(m, GroupNorm32) for m in serving.modules())
+    assert len(k3) == 2 * norms and not any(k3)
     training.decode(z.clone().requires_grad_())
+    assert len(k3) == 2 * norms
     shape = (2, 1024, 512)
     assert calls == [("k2", shape), ("k2", shape), ("flash", shape), ("k2", shape),
                      ("flash", shape)]

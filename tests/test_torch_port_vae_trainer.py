@@ -41,7 +41,9 @@ from reface_tpu_torch.nn.discriminator import NLayerDiscriminator as PDisc
 from reface_tpu_torch.nn.lpips import LPIPS as PLPIPS
 from reface_tpu_torch.nn.vae import AutoencoderKL as PVAE
 from reface_tpu_torch.nn.vae import VAEConfig as PVAEConfig
+from reface_tpu_torch.nn.layers import GroupNorm32
 from reface_tpu_torch.ops import attention as PA
+from reface_tpu_torch.ops import groupnorm as PG
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
@@ -332,14 +334,17 @@ def test_lpips_params_required_and_routes(monkeypatch):
     0, with the JAX check's message. The routes (meta tensors that claim to
     be on the card, the wrappers replaced by recorders): the generator
     pass's encode and decode run FlashAttention, the discriminator pass's
-    encode K2 and its decode (no gradient) FlashAttention's forward."""
+    encode K2 and its decode (no gradient) FlashAttention's forward; the
+    GroupNorms take K3 in the discriminator pass only."""
     vae = PVAE(PVAEConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1, dtype=torch.float32),
                device="cpu")
     init_state, step_fn, _, _ = PL.make_vae_train_step(vae, PL.VAELossConfig())
     with pytest.raises(ValueError, match="lpips_params required when perceptual_weight > 0"):
         step_fn(init_state(), np.zeros((1, S, S, 3), np.float32))
 
-    calls = []
+    calls, k3 = [], []
+    monkeypatch.setattr(PG, "group_norm_silu",
+                        lambda x, scale, bias, groups, eps, silu: k3.append(silu) or x)
     monkeypatch.setattr(PA, "wide_attention",
                         lambda q, k, v, scale: calls.append("k2") or q)
     monkeypatch.setattr(PA.FlashAttention, "apply",
@@ -351,7 +356,8 @@ def test_lpips_params_required_and_routes(monkeypatch):
     img = torch.zeros(2, 3, 256, 256, device="meta")
     post = meta.encode(img, for_grad=True)
     out, feats = meta.decode(post.mean, for_grad=True, features=True)
-    assert out.shape == (2, 3, 256, 256) and feats.shape == (2, 8, 256, 256)
+    assert out.shape == (2, 3, 256, 256) and feats.shape == (2, 8, 256, 256) and not k3
     with torch.no_grad():
         meta.decode(meta.encode(img).mean)
     assert calls == ["flash", "flash", "k2", "flash"]
+    assert len(k3) == sum(isinstance(m, GroupNorm32) for m in meta.modules()) and not any(k3)
